@@ -1,0 +1,194 @@
+"""The port's device backend against the reference's, decision for
+decision.
+
+``CudaBackend(device="cpu")`` runs the plain PyTorch versions of the two
+kernels (``wave_plain``, ``plan_plain``); they are held, with no
+tolerance, against the reference ``PallasBackend`` run in float64 and
+against the reference scalar backend: the same winners, EST/EFT, message
+LST/LFT, candidate coefficients A/B and crossing bounds, on the corpus
+slices of ``tests/test_backend_equivalence.py``, through both the
+whole-plan path and the per-wave path, and through the fused alpha
+sweep.
+
+The reference pallas backend enters float64 through
+``jax.experimental.enable_x64()``, which jax 0.9 no longer has; the
+fixture below supplies it as ``jax.enable_x64(True)`` for these tests
+only, without touching the reference package.  Every reference plan is
+checked to have run on pallas with no fallback.
+"""
+import jax
+import jax.experimental
+import numpy as np
+import pytest
+import torch
+
+import repro.core as ref
+import repro_torch.core as port
+from repro.core.ranks import hprv_b, priority_queue, rank_matrix
+from repro_torch.core import convert
+from repro_torch.core.backends import cuda as K
+from test_backend_equivalence import (_case, _link_reuse_topology, _wide,
+                                      assert_identical)
+
+
+@pytest.fixture(autouse=True)
+def pallas_f64(monkeypatch):
+    monkeypatch.setattr(jax.experimental, "enable_x64",
+                        lambda: jax.enable_x64(True), raising=False)
+
+
+def _to_port(g, tg):
+    return (convert.spg_from_arrays(**convert.spg_arrays(g)),
+            convert.topology_from_arrays(**convert.topology_arrays(tg)))
+
+
+def _make(kind, arg):
+    if kind == "case":
+        return _case(arg)
+    if kind == "wide":
+        return _wide(arg, 3)
+    tg = _link_reuse_topology(arg)
+    return ref.random_spg(10, np.random.default_rng(0), ccr=1.0, tg=tg), tg
+
+
+CASES = ([("case", s) for s in range(0, 200, 29)] +
+         [("wide", 8), ("wide", 16), ("reuse", 4)])
+
+
+def _setup(kind, arg):
+    g, tg = _make(kind, arg)
+    r = rank_matrix(g, tg)
+    q = priority_queue(hprv_b(g, tg, r), r.mean(1))
+    gp, tp = _to_port(g, tg)
+    return (ref.CompiledInstance(g, tg, rank=r),
+            port.CompiledInstance(gp, tp, rank=r.copy(), device="cpu"), q)
+
+
+@pytest.mark.parametrize("kind,arg", CASES, ids=str)
+def test_plan_path_matches_pallas_f64_and_scalar(kind, arg):
+    """Whole-plan path: one plain ``plan_plain`` dispatch per schedule
+    against the reference's ``lax.scan`` dispatch."""
+    ri, pi, q = _setup(kind, arg)
+    for alpha in (0.0, 0.85):
+        ss, bs, trs = ri.schedule_traced(q, alpha, backend="scalar")
+        _, bp, trp = ri.schedule_traced(q, alpha, backend="pallas")
+        sc, bc, trc = pi.schedule_traced(q, alpha, backend="cuda")
+        assert trc.records == trp.records == trs.records
+        assert bc == bp == bs
+        assert_identical(ss, sc)
+        # (a route that revisits a link overlaps itself on the reference
+        # too: the validator must say the same of both)
+        assert port.schedule_violations(sc) == ref.schedule_violations(ss)
+    be = pi.backend_instance("cuda")
+    assert (be.n_launches, be.n_roundtrips, be.n_state_uploads) == (2, 2, 2)
+
+
+@pytest.mark.parametrize("kind,arg", [("case", 0), ("case", 29),
+                                      ("wide", 8), ("reuse", 4)], ids=str)
+def test_wave_path_matches_pallas_f64(kind, arg, monkeypatch):
+    """Per-wave path: one plain ``wave_plain`` dispatch per wave against
+    the reference's per-wave Pallas kernel (``REPRO_PALLAS_SCAN=0``)."""
+    ri, pi, q = _setup(kind, arg)
+    monkeypatch.setenv("REPRO_PALLAS_SCAN", "0")
+    be = port.CudaBackend(pi, scan=False)
+    _, bp, trp = ri.schedule_traced(q, 0.85, backend="pallas")
+    _, bc, trc = pi.schedule_traced(q, 0.85, backend=be)
+    assert trc.records == trp.records
+    assert bc == bp
+    n_waves = len({rec[7] for rec in trc.records})
+    assert be.n_launches == be.n_roundtrips == n_waves
+    assert ri.backend_instance("pallas").n_launches == n_waves
+
+
+@pytest.mark.parametrize("kind,arg", [("case", 58), ("wide", 16)], ids=str)
+def test_fused_sweep_matches_pallas_f64(kind, arg):
+    """The fused sweep: every alpha in one dispatch, per-alpha traces
+    equal to the reference's vmapped scan."""
+    ri, pi, q = _setup(kind, arg)
+    alphas = [0.0, 0.4, 1.1, 2.5]
+    ref_sw = ri.schedule_sweep(q, alphas, backend="pallas")
+    port_sw = pi.schedule_sweep(q, alphas, backend="cuda")
+    for (s, b, tr), (sp, bp, trp) in zip(ref_sw, port_sw):
+        assert trp.records == tr.records
+        assert bp == b
+        assert np.array_equal(s.finish, sp.finish)
+    be = pi.backend_instance("cuda")
+    assert be.n_launches == 1 and be.n_roundtrips == 1
+
+
+def test_single_evaluate_matches_scalar():
+    """``evaluate`` (one non-committing decision) against the scalar
+    backend at every step of a schedule."""
+    _, pi, q = _setup("case", 29)
+    sc = pi.backend_instance("scalar")
+    cu = port.CudaBackend(pi, scan=False)
+    for be in (sc, cu):
+        be.start(0.7, pi.default_period, True)
+    for j in q:
+        d_s, d_c = sc.evaluate(j), cu.evaluate(j)
+        assert d_s == d_c
+        for be in (sc, cu):
+            be.apply(j, *d_s[:4])
+
+
+def test_scheduler_plans_match_pallas_f64():
+    """Through the session: the reference on pallas (no fallback) and the
+    port on the plain kernels give the same plans."""
+    g, tg = ref.paper_spg(), ref.paper_topology()
+    gp, tp = port.paper_spg(), port.paper_topology()
+    for policy, ppolicy in (
+            (ref.HSV_CC(), port.HSV_CC()),
+            (ref.HVLB_CC_IC(alpha_max=1.0, alpha_step=0.25, period=150.0),
+             port.HVLB_CC_IC(alpha_max=1.0, alpha_step=0.25,
+                             period=150.0))):
+        pr = ref.Scheduler(tg, backend="pallas").submit(g, policy)
+        assert pr.backend == "pallas" and pr.fallback is None
+        pp = port.Scheduler(tp, device="cpu").submit(gp, ppolicy)
+        assert pp.backend == "cuda"
+        assert_identical(pr.schedule, pp.schedule)
+        if pr.sweep is not None:
+            assert np.array_equal(pr.sweep.makespans, pp.sweep.makespans)
+            assert pr.sweep.best_alpha == pp.sweep.best_alpha
+            assert pr.holes == pp.holes
+
+
+def test_wrappers_dispatch_on_device():
+    """CPU tensors take the plain version and count no launch; tensors on
+    several devices are refused."""
+    _, pi, q = _setup("case", 0)
+    be = pi.backend_instance("cuda")
+    be.start(0.0, pi.default_period, True)
+    waves = port.plan_waves(q, pi._preds, port.DEFAULT_BATCH_MAX)
+    args = be.stage_plan(waves, [0.0, 1.0])
+    K.reset_launches()
+    out = K.sched_plan(**args)
+    plain = K.plan_plain(**args)
+    for a, b in zip(out[0].tensors(), plain[0].tensors()):
+        assert torch.equal(a, b)
+    assert K.LAUNCHES == {"sched_wave_kernel": 0, "sched_plan_kernel": 0}
+    with pytest.raises(ValueError, match="several devices"):
+        K._on_cuda([torch.zeros(1), torch.zeros(1, device="meta")])
+
+
+def test_vectorized_crossings_equal_scalar_crossing():
+    """The decode's batched crossing bounds are the scalar method's
+    floats, near-ties and no-rival cases included."""
+    rng = np.random.default_rng(5)
+    P = 6
+    ca = rng.uniform(1.0, 1e4, size=(40, P))
+    cb = rng.uniform(0.0, 1e3, size=(40, P))
+    ca[:5, 1] = ca[:5, 0]                 # exact A ties
+    cb[:5, 1] = cb[:5, 0]                 # ... with exact B ties
+    cb[5:10, 2] = cb[5:10, 0] * (1 + 1e-17)
+    ca[10:15] = ca[10:15, :1]             # all rivals equal
+    cb[15:20] = 0.0
+    win = rng.integers(0, P, size=40)
+    win[:10] = 0
+    for alpha in (0.0, 0.37, 2.5):
+        got = K.crossings(win, ca, cb, alpha)
+        want = [port.CandidateEvaluator.crossing(int(w), tuple(a), tuple(b),
+                                                 alpha)
+                for w, a, b in zip(win, ca, cb)]
+        assert got.tolist() == want
+    one = K.crossings(np.zeros(3, int), np.ones((3, 1)), np.ones((3, 1)), 1.0)
+    assert one.tolist() == [float("inf")] * 3
