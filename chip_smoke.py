@@ -5,21 +5,34 @@ Run from the root of a checkout on a machine with one NVIDIA H100:
 
     python3 chip_smoke.py
 
-It builds the scheduling kernels from ``src/repro_torch/core/backends/
-csrc`` with ``nvcc``, holds each kernel against its plain PyTorch
-version on the card (exact equality of every output), drives the main
-path — ``Scheduler.submit`` on the paper's worked example and on the
-exp7 deployment (16 ECUs, 500 tasks, the 301-alpha HVLB_CC grid in one
-kernel launch) — checks the results against the pinned paper numbers
-and the port's scalar reference, and prints one JSON line per phase.
-The last line is ``{"ok": true, "device": {...}}``.  Any failure raises,
-and the exit code is not 0; without a CUDA device it exits with 2
-before printing any result.
+It builds the kernels of the port with ``nvcc``, one process per
+source, all started together: the scheduling kernels (``src/repro_torch/
+core/backends/csrc``, with ``--fmad=false``) and the attention and scan
+kernels (``src/repro_torch/kernels/csrc``).  It holds the scheduling
+kernels against their plain PyTorch versions on the card (exact
+equality of every output), drives the scheduler's main path —
+``Scheduler.submit`` on the paper's worked example and on the exp7
+deployment (16 ECUs, 500 tasks, the 301-alpha HVLB_CC grid in one
+kernel launch) — and checks the results against the pinned paper
+numbers and the port's scalar reference.  It then drives the kernel
+entry points (``repro_torch.kernels.*.ops``) at published model widths
+— attention at qwen3-8b, qwen2-0.5b and hubert-xlarge width, the
+selective scan at falcon-mamba-7b width, S = 4096 — and holds each
+output against the plain version on the card at the tolerances of
+``tests/test_kernels.py``, with the plain versions in full f32 (TF32
+off).  Each path is driven with every launch count at 0 just before it
+and read just after.  It prints one JSON line per phase, then the
+``kernels`` line (every kernel: launches on its path, error, times,
+bound), the card's name and power limit, and last ``{"ok": true,
+"device": {...}}``.  Any failure raises, and the exit code is not 0;
+without a CUDA device it exits with 2 before printing any result.
 """
 import json
+import re
 import subprocess
 import sys
 import time
+from concurrent.futures import ThreadPoolExecutor
 from pathlib import Path
 
 ROOT = Path(__file__).resolve().parent
@@ -27,6 +40,7 @@ sys.path.insert(0, str(ROOT / "src"))
 
 import numpy as np  # noqa: E402
 import torch  # noqa: E402
+import torch.nn.functional as F  # noqa: E402
 
 from repro_torch.core import (HSV_CC, HVLB_CC_B, HVLB_CC_IC,  # noqa: E402
                               DEFAULT_BATCH_MAX, CompiledInstance,
@@ -34,11 +48,29 @@ from repro_torch.core import (HSV_CC, HVLB_CC_B, HVLB_CC_IC,  # noqa: E402
                               hprv_b, paper_spg, paper_topology, plan_waves,
                               priority_queue, random_spg, rank_matrix,
                               schedule_violations)
+from repro_torch.configs import SHAPES, get_arch  # noqa: E402
 from repro_torch.core.backends import cuda as K  # noqa: E402
+from repro_torch.kernels.flash_attention import kernel as FA  # noqa: E402
+from repro_torch.kernels.flash_attention.ops import \
+    flash_attention  # noqa: E402
+from repro_torch.kernels.flash_attention.ref import \
+    attention_ref  # noqa: E402
+from repro_torch.kernels.ssm_scan import kernel as SS  # noqa: E402
+from repro_torch.kernels.ssm_scan.ops import selective_scan  # noqa: E402
+from repro_torch.kernels.ssm_scan.ref import selective_scan_ref  # noqa: E402
 
-# NVIDIA H100 SXM data sheet: HBM3 bandwidth and FP64 (non-tensor) peak
+# NVIDIA H100 SXM data sheet: HBM3 bandwidth, FP64 and FP32 (non-tensor)
+# peaks, dense bf16 tensor-core peak
 HBM_BYTES_PER_S = 3.35e12
 FP64_OPS_PER_S = 34e12
+FP32_OPS_PER_S = 67e12
+BF16_OPS_PER_S = 989e12
+# exps per clock per SM of the special-function units (Hopper)
+SFU_EXP_PER_CLOCK_PER_SM = 16
+
+# the tolerances of tests/test_kernels.py
+ATTN_TOL = {torch.float32: 1e-5, torch.bfloat16: 2e-2}
+SCAN_TOL = {torch.float32: 2e-4, torch.bfloat16: 5e-2}
 
 PAPER_POLICY = dict(alpha_max=3.0, period=150.0)
 EXP7_POLICY = HVLB_CC_B(alpha_max=3.0, alpha_step=0.01)
@@ -118,10 +150,116 @@ def event_ms(fn, reps: int) -> float:
     return a.elapsed_time(b) / reps
 
 
-def bound(bytes_moved: int, ops: int):
+def bound(bytes_moved: int, ops: int, ops_per_s: float = FP64_OPS_PER_S):
     t_bytes = bytes_moved / HBM_BYTES_PER_S * 1e3
-    t_ops = ops / FP64_OPS_PER_S * 1e3
+    t_ops = ops / ops_per_s * 1e3
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+def reset_all_launches() -> None:
+    for mod in (K, FA, SS):
+        mod.reset_launches()
+
+
+def all_launches() -> dict:
+    return {**K.LAUNCHES, **FA.LAUNCHES, **SS.LAUNCHES}
+
+
+def ptxas_summary(log: str) -> dict:
+    """Registers and spill stores of each kernel nvcc compiled, from the
+    ``-Xptxas=-v`` output: {mangled name: [registers, spill bytes]}."""
+    out, name, spill = {}, None, 0
+    for line in log.splitlines():
+        m = re.search(r"Compiling entry function '(\S+)'", line)
+        if m:
+            name = m.group(1)
+        m = re.search(r"(\d+) bytes spill stores", line)
+        if m:
+            spill = int(m.group(1))
+        m = re.search(r"Used (\d+) registers", line)
+        if m and name:
+            out[name] = [int(m.group(1)), spill]
+            name, spill = None, 0
+    return out
+
+
+def hold(name: str, got: torch.Tensor, want: torch.Tensor,
+         tol: float) -> float:
+    """Finite output of the plain version's shape and dtype, within
+    ``|got - want| <= tol + tol * |want|`` everywhere; returns the max
+    abs error."""
+    if got.shape != want.shape or got.dtype != want.dtype:
+        raise AssertionError(f"{name}: {got.shape}/{got.dtype} vs "
+                             f"{want.shape}/{want.dtype}")
+    g, w = got.float(), want.float()
+    if not bool(torch.isfinite(g).all()):
+        raise AssertionError(f"{name}: non-finite output")
+    diff = (g - w).abs()
+    err = float(diff.max())
+    if not bool((diff <= tol + tol * w.abs()).all()):
+        raise AssertionError(f"{name}: max abs err {err} outside the "
+                             f"tolerance {tol} of the plain version")
+    return err
+
+
+def attention_cases(dev):
+    """One layer's prefill at published widths: (name, q, k, v, causal)
+    with inputs from numpy, seed 0.  qwen3-8b in bf16 (its dtype) and
+    f32, qwen2-0.5b (7:1 GQA, d = 64), hubert-xlarge (full attention,
+    d = 80); S = train_4k's sequence length, B = 1."""
+    S = SHAPES["train_4k"].seq_len
+    rng = np.random.default_rng(0)
+    cases = []
+    for arch, dtype in (("qwen3-8b", torch.bfloat16),
+                        ("qwen3-8b", torch.float32),
+                        ("qwen2-0.5b", torch.bfloat16),
+                        ("hubert-xlarge", torch.bfloat16)):
+        cfg = get_arch(arch)
+        d = cfg.head_dim
+        q, k, v = (torch.from_numpy(rng.standard_normal(
+            (1, h, S, d)).astype(np.float32)).to(dev, dtype)
+            for h in (cfg.n_heads, cfg.n_kv_heads, cfg.n_kv_heads))
+        cases.append((f"{arch}/{str(dtype)[6:]}", q, k, v, cfg.causal))
+    return cases
+
+
+def scan_cases(dev):
+    """falcon-mamba-7b's selective scan, one layer, B = 1, S = 4096:
+    Di = d_inner, N = d_state; x, dt, Bm, Cm in bf16 (the config's
+    dtype) and in f32, A in f32; inputs from numpy, seed 1, as
+    tests/test_kernels.py makes them."""
+    cfg = get_arch("falcon-mamba-7b")
+    S, Di, N = SHAPES["train_4k"].seq_len, cfg.d_inner, cfg.d_state
+    rng = np.random.default_rng(1)
+    x = rng.standard_normal((1, S, Di)).astype(np.float32)
+    dt = np.logaddexp(0.0, rng.standard_normal((1, S, Di)) - 2.0)
+    A = -np.exp(rng.standard_normal((Di, N)) * 0.3)
+    Bm = rng.standard_normal((1, S, N)).astype(np.float32)
+    Cm = rng.standard_normal((1, S, N)).astype(np.float32)
+    A_t = torch.from_numpy(A.astype(np.float32)).to(dev)
+    cases = []
+    for dtype in (torch.bfloat16, torch.float32):
+        x_t, dt_t, B_t, C_t = (torch.from_numpy(
+            a.astype(np.float32)).to(dev, dtype) for a in (x, dt, Bm, Cm))
+        cases.append((f"falcon-mamba-7b/{str(dtype)[6:]}",
+                      (x_t, dt_t, A_t, B_t, C_t)))
+    return cases
+
+
+def attention_bound(q, k, v, causal):
+    B, Hq, S, d = q.shape
+    pairs = S * (S + 1) // 2 if causal else S * S
+    flops = 4 * B * Hq * pairs * d
+    moved = nbytes((q, k, v)) + q.numel() * q.element_size()
+    rate = BF16_OPS_PER_S if q.dtype == torch.bfloat16 else FP32_OPS_PER_S
+    return bound(moved, flops, rate)
+
+
+def scan_bound(args, exp_per_s):
+    x, _, A, _, _ = args
+    B, S, Di = x.shape
+    moved = nbytes(args) + x.numel() * x.element_size()
+    return bound(moved, B * S * Di * A.shape[1], exp_per_s)
 
 
 def decision_ops(slots: int, P: int, K: int, R: int, H: int) -> int:
@@ -179,11 +317,20 @@ def main() -> int:
                           "--format=csv,noheader"], capture_output=True,
                          text=True, check=True).stdout.strip().splitlines()[0]
     print(smi, flush=True)
-    lib = K.build_library()
+    t_build = time.perf_counter()
+    with ThreadPoolExecutor(3) as ex:
+        futures = [ex.submit(f) for f in (K.build_library, FA.build_library,
+                                          SS.build_library)]
+        built = [f.result() for f in futures]
+    built[0] = built[0].built
+    build_wall = time.perf_counter() - t_build
     emit({"phase": "device", "name": torch.cuda.get_device_name(0),
           "torch": torch.__version__, "cuda": torch.version.cuda,
-          "library": str(lib.path.relative_to(ROOT)),
-          "build_s": lib.build_seconds})
+          "sms": torch.cuda.get_device_properties(0).multi_processor_count,
+          "build_wall_s": build_wall, "libraries": [
+              {"name": b.name, "path": str(b.path.relative_to(ROOT)),
+               "flags": " ".join(b.flags), "build_s": b.build_seconds,
+               "ptxas": ptxas_summary(b.log)} for b in built]})
 
     # ---- 2. kernels against their plain versions on the card
     gp, tgp = paper_spg(), paper_topology()
@@ -240,9 +387,10 @@ def main() -> int:
     paths = {}
 
     def drive(name, fn):
-        K.reset_launches()
+        reset_all_launches()
         result = fn()
-        paths[name] = dict(K.LAUNCHES)
+        torch.cuda.synchronize()
+        paths[name] = all_launches()
         return result
 
     sched = Scheduler(tgp)
@@ -322,8 +470,67 @@ def main() -> int:
           "bit_identical_alphas": checked, "launches": {
               k: paths[k] for k in ("exp7_submit", "exp7_per_wave")}})
 
-    # ---- 5. kernels: each path launches its own kernel and no other;
-    # the kernels line carries the exp7 paths' counts
+    # ---- 5. the attention entry point at published widths: all cases
+    # in one path, then each output held against the plain version
+    dev = torch.device("cuda")
+    torch.backends.cuda.matmul.allow_tf32 = False   # plain versions in f32
+    torch.backends.cudnn.allow_tf32 = False
+    cases = attention_cases(dev)
+    outs = drive("attention", lambda: [
+        flash_attention(q, k, v, causal=c) for _, q, k, v, c in cases])
+    attn = {}
+    for (name, q, k, v, causal), out in zip(cases, outs):
+        err = hold(f"flash_attention_kernel {name}", out,
+                   attention_ref(q, k, v, causal=causal), ATTN_TOL[q.dtype])
+        del out
+        ms = event_ms(lambda: flash_attention(q, k, v, causal=causal), 10)
+        plain_ms = event_ms(lambda: attention_ref(q, k, v, causal=causal), 3)
+        lib_ms = event_ms(lambda: F.scaled_dot_product_attention(
+            q, k, v, is_causal=causal, enable_gqa=True), 10)
+        b_ms, b_by = attention_bound(q, k, v, causal)
+        attn[name] = {"B": q.shape[0], "Hq": q.shape[1], "Hkv": k.shape[1],
+                      "S": q.shape[2], "d": q.shape[3], "causal": causal,
+                      "max_abs_err": err, "tol": ATTN_TOL[q.dtype], "ms": ms,
+                      "plain_ms": plain_ms, "library_ms": lib_ms,
+                      "bound_ms": b_ms, "bound_by": b_by}
+    del outs
+    emit({"phase": "attention", "entry": "repro_torch.kernels."
+          "flash_attention.ops.flash_attention", "cases": attn,
+          "launches": paths["attention"]})
+
+    # ---- 6. the selective-scan entry point at falcon-mamba-7b width
+    smi_clock = subprocess.run(
+        ["nvidia-smi", "--query-gpu=clocks.max.sm",
+         "--format=csv,noheader,nounits"], capture_output=True, text=True,
+        check=True).stdout.strip().splitlines()[0]
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    exp_per_s = sms * SFU_EXP_PER_CLOCK_PER_SM * float(smi_clock) * 1e6
+    scases = scan_cases(dev)
+    youts = drive("scan", lambda: [selective_scan(*a) for _, a in scases])
+    scan = {}
+    for (name, a), y in zip(scases, youts):
+        err = hold(f"selective_scan_kernel {name}", y,
+                   selective_scan_ref(*a), SCAN_TOL[a[0].dtype])
+        del y
+        ms = event_ms(lambda: selective_scan(*a), 10)
+        plain_ms = event_ms(lambda: selective_scan_ref(*a), 1)
+        b_ms, b_by = scan_bound(a, exp_per_s)
+        x, _, A, _, _ = a
+        scan[name] = {"B": x.shape[0], "S": x.shape[1], "Di": x.shape[2],
+                      "N": A.shape[1], "max_abs_err": err,
+                      "tol": SCAN_TOL[x.dtype], "ms": ms,
+                      "plain_ms": plain_ms, "library_ms": None,
+                      "bound_ms": b_ms, "bound_by": b_by}
+    del youts
+    emit({"phase": "scan", "entry": "repro_torch.kernels.ssm_scan.ops."
+          "selective_scan", "sm_clock_max_mhz": float(smi_clock),
+          "exp_per_s": exp_per_s, "cases": scan,
+          "launches": paths["scan"]})
+
+    # ---- 7. kernels: each path launches its own kernels and no other;
+    # the kernels line carries each kernel's count on its path and, for
+    # the attention and scan kernels, the numbers of the first (bf16)
+    # case at the widths above
     for name in ("paper_submit", "exp7_submit"):
         assert paths[name]["sched_plan_kernel"] > 0, (name, paths[name])
         assert paths[name]["sched_wave_kernel"] == 0, (name, paths[name])
@@ -332,7 +539,14 @@ def main() -> int:
         assert paths[name]["sched_plan_kernel"] == 0, (name, paths[name])
         assert paths[name]["sched_wave_kernel"] == (
             waves or paths[name]["sched_wave_kernel"]) > 0, (name, paths)
+    for name, counts in paths.items():
+        own = {"attention": {"flash_attention_kernel": len(cases)},
+               "scan": {"selective_scan_kernel": len(scases)}}.get(name)
+        if own is None:
+            own = {k: counts[k] for k in K.LAUNCHES}
+        assert counts == {**dict.fromkeys(counts, 0), **own}, (name, counts)
     src = "src/repro_torch/core/backends/csrc/sched_kernels.cu"
+    a0, s0 = next(iter(attn)), next(iter(scan))
     emit({"kernels": [
         {"name": "sched_wave_kernel", "route": "cuda", "source": src,
          "replaces": "src/repro/core/backends/pallas.py:199",
@@ -347,7 +561,25 @@ def main() -> int:
          "launches": paths["exp7_submit"]["sched_plan_kernel"],
          "max_abs_err": max(e_p_paper, e_p7), "ms": k2_ms,
          "plain_ms": k2_plain_ms, "bound_ms": k2_bound, "bound_by": k2_by,
-         "library_ms": None}]})
+         "library_ms": None},
+        {"name": "flash_attention_kernel", "route": "cuda",
+         "source": "src/repro_torch/kernels/csrc/flash_attention.cu",
+         "replaces": "src/repro/kernels/flash_attention/kernel.py:30",
+         "path": "kernels.flash_attention.ops.flash_attention, "
+                 + ", ".join(attn), "case": a0,
+         "launches": paths["attention"]["flash_attention_kernel"],
+         "max_abs_err": max(c["max_abs_err"] for c in attn.values()),
+         **{k: attn[a0][k] for k in ("ms", "plain_ms", "bound_ms",
+                                     "bound_by", "library_ms")}},
+        {"name": "selective_scan_kernel", "route": "cuda",
+         "source": "src/repro_torch/kernels/csrc/ssm_scan.cu",
+         "replaces": "src/repro/kernels/ssm_scan/kernel.py:27",
+         "path": "kernels.ssm_scan.ops.selective_scan, " + ", ".join(scan),
+         "case": s0, "launches": paths["scan"]["selective_scan_kernel"],
+         "max_abs_err": max(c["max_abs_err"] for c in scan.values()),
+         **{k: scan[s0][k] for k in ("ms", "plain_ms", "bound_ms",
+                                     "bound_by", "library_ms")}}]})
+    print(smi, flush=True)
     emit({"ok": True, "device": {"platform": "gpu",
                                  "kind": torch.cuda.get_device_name(0),
                                  "count": torch.cuda.device_count()}})

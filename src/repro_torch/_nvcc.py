@@ -1,0 +1,101 @@
+"""Build a CUDA shared library with ``nvcc`` and load it with ``ctypes``,
+and the checks every kernel wrapper makes around a launch.
+
+Every kernel library of the port goes through :func:`build`: its
+sources are compiled for ``sm_90a`` at first use into ``build/
+repro_torch/`` of the checkout (listed in ``.gitignore``), under a name
+keyed by a hash of the sources and the flags, so a changed source or
+flag builds anew and an unchanged one is loaded as it is.  The output is
+written under a temporary name and renamed into place, so a process
+never loads a half-written library.  A missing ``nvcc`` or a failed
+build raises ``RuntimeError``; nothing falls back.
+
+Each library has a plain C interface; the caller sets each function's
+``argtypes`` (``ctypes.c_void_p`` for pointers and the stream,
+``ctypes.c_int`` for ints) on the returned handle.  A wrapper launches
+only on CUDA tensors (:func:`on_cuda`) and raises when the launch
+function returns a CUDA error (:func:`raise_on`).
+"""
+from __future__ import annotations
+
+import ctypes
+import dataclasses
+import hashlib
+import os
+import subprocess
+import time
+from pathlib import Path
+from typing import Sequence, Tuple
+
+import torch
+
+__all__ = ["BASE_FLAGS", "BUILD_DIR", "Library", "build", "on_cuda",
+           "raise_on"]
+
+# flags of every library; a library adds its own (e.g. ``--fmad=false``)
+BASE_FLAGS: Tuple[str, ...] = (
+    "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
+    "-shared", "-Xcompiler", "-fPIC", "-Xptxas=-v")
+# the checkout's root (src/repro_torch/_nvcc.py -> 2 up)
+BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "repro_torch"
+
+
+@dataclasses.dataclass
+class Library:
+    name: str
+    lib: ctypes.CDLL
+    path: Path
+    flags: Tuple[str, ...]
+    build_seconds: float      # 0.0 when the hashed build already existed
+    log: str                  # nvcc's output (ptxas: registers, spills)
+
+
+def build(name: str, sources: Sequence[Path],
+          flags: Sequence[str]) -> Library:
+    """Compile ``sources`` with ``flags`` into ``lib<name>_<hash>.so``
+    (once per hash of the sources and flags) and load it."""
+    from torch.utils.cpp_extension import CUDA_HOME
+    flags = tuple(flags)
+    h = hashlib.sha256(" ".join(flags).encode())
+    for src in sources:
+        h.update(Path(src).read_bytes())
+    out = BUILD_DIR / f"lib{name}_{h.hexdigest()[:16]}.so"
+    seconds, log = 0.0, ""
+    if not out.exists():
+        nvcc = None if CUDA_HOME is None else Path(CUDA_HOME) / "bin" / "nvcc"
+        if nvcc is None or not nvcc.exists():
+            raise RuntimeError(f"nvcc not found (CUDA_HOME is {CUDA_HOME!r}):"
+                               f" cannot build {name}")
+        BUILD_DIR.mkdir(parents=True, exist_ok=True)
+        tmp = out.with_name(f"{out.stem}.{os.getpid()}.tmp.so")
+        t0 = time.perf_counter()
+        res = subprocess.run([str(nvcc), *flags, "-o", str(tmp),
+                              *map(str, sources)], capture_output=True,
+                             text=True)
+        seconds = time.perf_counter() - t0
+        log = res.stderr + res.stdout
+        if res.returncode != 0:
+            raise RuntimeError(f"nvcc failed on {name} ({res.returncode}):\n"
+                               f"{log}")
+        os.replace(tmp, out)
+    return Library(name, ctypes.CDLL(str(out)), out, flags, seconds, log)
+
+
+def on_cuda(tensors: Sequence[torch.Tensor]) -> bool:
+    """True when every tensor is on one CUDA device (launch the kernel),
+    False when every tensor is on the CPU (run the plain version); raises
+    on anything else."""
+    devs = {t.device for t in tensors}
+    if len(devs) != 1:
+        raise ValueError(f"kernel inputs on several devices: {devs}")
+    dev = devs.pop()
+    if dev.type == "cpu":
+        return False
+    if dev.type != "cuda":
+        raise ValueError(f"no kernel for device {dev}")
+    return True
+
+
+def raise_on(rc: int, kernel: str) -> None:
+    if rc != 0:
+        raise RuntimeError(f"{kernel} launch failed with CUDA error {rc}")

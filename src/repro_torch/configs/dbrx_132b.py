@@ -1,0 +1,9 @@
+"""dbrx-132b [moe]: 40L d=6144 48H (GQA kv=8) d_ff=10752 vocab=100352,
+16 experts top-4 fine-grained  [hf:databricks/dbrx-base]."""
+from .base import ModelConfig
+
+CONFIG = ModelConfig(
+    name="dbrx-132b", family="moe",
+    n_layers=40, d_model=6144, n_heads=48, n_kv_heads=8, d_ff=10752,
+    vocab=100352, n_experts=16, top_k=4, rope="standard", mlp="swiglu",
+)

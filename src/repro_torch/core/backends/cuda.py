@@ -27,9 +27,9 @@ divisor would let PyTorch multiply by its reciprocal on the card).
 Where the reference buckets shapes to powers of two, tile-pads them and
 keeps a bounded cache of compiled kernels, these kernels take their
 sizes at run time: W, B, K and A are passed exactly.  The library is
-built with ``nvcc`` from the package's sources at first use into
-``build/repro_torch/`` of the checkout, keyed by a hash of the source
-and flags, and loaded with ``ctypes``.
+built by :func:`repro_torch._nvcc.build` from the package's sources at
+first use into ``build/repro_torch/`` of the checkout, keyed by a hash
+of the source and flags, and loaded with ``ctypes``.
 
 Host side, method by method: ``_run_batch`` stages, launches and decodes
 one wave as the reference's does; :meth:`CudaBackend.stage_plan` and
@@ -46,9 +46,6 @@ from __future__ import annotations
 
 import ctypes
 import dataclasses
-import hashlib
-import os
-import subprocess
 import time
 from pathlib import Path
 from typing import Dict, List, Optional, Sequence, Tuple
@@ -56,6 +53,8 @@ from typing import Dict, List, Optional, Sequence, Tuple
 import numpy as np
 import torch
 
+from ... import _nvcc
+from ..._nvcc import on_cuda as _on_cuda, raise_on as _raise_on
 from ..faults import WaveTimeoutError
 from .base import CandidateEvaluator, Decision
 from .layout import src_layout, stacked_edge_ct, stacked_src_tensors
@@ -69,10 +68,8 @@ _INF = float("inf")
 _NEG_INF = float("-inf")
 
 SOURCE = Path(__file__).resolve().parent / "csrc" / "sched_kernels.cu"
-NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
-              "-O3", "--fmad=false", "-shared", "-Xcompiler", "-fPIC")
-# the checkout's root (src/repro_torch/core/backends/cuda.py -> 4 up)
-_BUILD_DIR = Path(__file__).resolve().parents[4] / "build" / "repro_torch"
+# bit-exact decisions: no multiply-add is ever fused
+NVCC_FLAGS = _nvcc.BASE_FLAGS + ("--fmad=false",)
 
 # Hopper limits the wrappers check before a launch
 _MAX_THREADS = 1024
@@ -107,10 +104,12 @@ def check_device(device) -> torch.device:
 # ----------------------------------------------------------------------
 @dataclasses.dataclass
 class _Library:
-    lib: ctypes.CDLL
-    path: Path
-    build_seconds: float      # 0.0 when the hashed build already existed
+    built: _nvcc.Library
     hmax: int
+
+    @property
+    def lib(self) -> ctypes.CDLL:
+        return self.built.lib
 
 
 _LIB: Optional[_Library] = None
@@ -128,27 +127,8 @@ def build_library() -> _Library:
     global _LIB
     if _LIB is not None:
         return _LIB
-    from torch.utils.cpp_extension import CUDA_HOME
-    nvcc = None if CUDA_HOME is None else Path(CUDA_HOME) / "bin" / "nvcc"
-    src = SOURCE.read_bytes()
-    digest = hashlib.sha256(src + " ".join(NVCC_FLAGS).encode()).hexdigest()
-    out = _BUILD_DIR / f"sched_kernels_{digest[:16]}.so"
-    seconds = 0.0
-    if not out.exists():
-        if nvcc is None or not nvcc.exists():
-            raise RuntimeError("nvcc not found (CUDA_HOME is "
-                               f"{CUDA_HOME!r}): cannot build the kernels")
-        _BUILD_DIR.mkdir(parents=True, exist_ok=True)
-        tmp = out.with_name(f"{out.stem}.{os.getpid()}.tmp.so")
-        t0 = time.perf_counter()
-        res = subprocess.run([str(nvcc), *NVCC_FLAGS, "-o", str(tmp),
-                              str(SOURCE)], capture_output=True, text=True)
-        seconds = time.perf_counter() - t0
-        if res.returncode != 0:
-            raise RuntimeError(f"nvcc failed ({res.returncode}):\n"
-                               f"{res.stderr}{res.stdout}")
-        os.replace(tmp, out)
-    lib = ctypes.CDLL(str(out))
+    built = _nvcc.build("sched_kernels", [SOURCE], NVCC_FLAGS)
+    lib = built.lib
     lib.sched_smem.argtypes = [_I, _I, _I]
     lib.sched_smem.restype = ctypes.c_size_t
     lib.sched_hmax.argtypes = []
@@ -159,7 +139,7 @@ def build_library() -> _Library:
     lib.sched_plan_launch.argtypes = (
         [_P] * 13 + [_D] + [_P] * 22 + [_I] * 10 + [_P])
     lib.sched_plan_launch.restype = _I
-    _LIB = _Library(lib, out, seconds, int(lib.sched_hmax()))
+    _LIB = _Library(built, int(lib.sched_hmax()))
     return _LIB
 
 
@@ -225,20 +205,6 @@ State = Tuple[torch.Tensor, torch.Tensor, torch.Tensor, torch.Tensor,
               torch.Tensor]
 
 
-def _on_cuda(tensors: Sequence[torch.Tensor]) -> bool:
-    """True when every tensor is on one CUDA device, False when every
-    tensor is on the CPU; raises on anything else."""
-    devs = {t.device for t in tensors}
-    if len(devs) != 1:
-        raise ValueError(f"kernel inputs on several devices: {devs}")
-    dev = devs.pop()
-    if dev.type == "cpu":
-        return False
-    if dev.type != "cuda":
-        raise ValueError(f"no kernel for device {dev}")
-    return True
-
-
 def _check(t: torch.Tensor, dtype: torch.dtype, shape: Tuple[int, ...],
            what: str) -> None:
     if t.dtype != dtype or tuple(t.shape) != shape or not t.is_contiguous():
@@ -270,11 +236,6 @@ def _check_tables(T: RouteTables) -> None:
     _check(T.ct, torch.float64, (E + 1, P + 1, R, H, P), "ct")
     _check(T.comp, torch.float64, (n, P), "comp")
     _check(T.ldet, torch.float64, (n, P), "ldet")
-
-
-def _raise_on(rc: int, kernel: str) -> None:
-    if rc != 0:
-        raise RuntimeError(f"{kernel} launch failed with CUDA error {rc}")
 
 
 # ----------------------------------------------------------------------

@@ -130,7 +130,13 @@ def test_batch_cap_is_decision_invariant():
 
 def test_import_pulls_in_neither_jax_nor_reference():
     code = ("import sys, repro_torch, repro_torch.core, "
-            "repro_torch.core.backends.cuda\n"
+            "repro_torch.core.backends.cuda, repro_torch.configs, "
+            "repro_torch.kernels.flash_attention.ops, "
+            "repro_torch.kernels.flash_attention.kernel, "
+            "repro_torch.kernels.flash_attention.ref, "
+            "repro_torch.kernels.ssm_scan.ops, "
+            "repro_torch.kernels.ssm_scan.kernel, "
+            "repro_torch.kernels.ssm_scan.ref\n"
             "bad = sorted(m for m in sys.modules if m == 'repro' or "
             "m.startswith(('repro.', 'jax', 'jaxlib')))\n"
             "print(bad); sys.exit(1 if bad else 0)\n")

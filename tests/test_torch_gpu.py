@@ -1,5 +1,7 @@
 """The port's kernels on the card, held against their plain versions and
-the scalar reference.
+the scalar reference.  The attention and scan kernels are held at the
+small shapes of ``tests/test_kernels.py`` (and ragged ones) to the
+tolerances stated there, in full f32 (no TF32) for the plain versions.
 
 Every test here is marked ``gpu`` and skips on a host without CUDA.  The
 file imports only the port (no JAX, no reference package), so it runs on
@@ -12,7 +14,14 @@ import pytest
 import torch
 
 import repro_torch.core as port
+from repro_torch import _nvcc
 from repro_torch.core.backends import cuda as K
+from repro_torch.kernels.flash_attention import kernel as FA
+from repro_torch.kernels.flash_attention.ops import flash_attention
+from repro_torch.kernels.flash_attention.ref import attention_ref
+from repro_torch.kernels.ssm_scan import kernel as SS
+from repro_torch.kernels.ssm_scan.ops import selective_scan
+from repro_torch.kernels.ssm_scan.ref import selective_scan_ref
 
 pytestmark = pytest.mark.gpu
 
@@ -23,6 +32,7 @@ RATES = [(1.0, 0.67, 0.83), (0.83, 0.67, 1.0), (0.67, 0.83, 1.0)]
 def card():
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device")
+    torch.backends.cuda.matmul.allow_tf32 = False    # plain versions in f32
     return torch.device("cuda")
 
 
@@ -110,3 +120,88 @@ def test_session_on_card_counts_one_launch(card):
     assert plan.backend == "cuda"
     assert (plan.makespan, plan.best_alpha) == (62.0, 1.06)
     assert K.LAUNCHES == {"sched_wave_kernel": 0, "sched_plan_kernel": 1}
+
+
+def test_sched_library_builds_without_fused_multiply_add(card):
+    lib = K.build_library()
+    assert "--fmad=false" in lib.built.flags
+    assert lib.built.flags[:len(_nvcc.BASE_FLAGS)] == _nvcc.BASE_FLAGS
+
+
+TOL = {torch.float32: dict(rtol=1e-5, atol=1e-5),
+       torch.bfloat16: dict(rtol=2e-2, atol=2e-2)}
+SCAN_TOL = {torch.float32: dict(rtol=2e-4, atol=2e-4),
+            torch.bfloat16: dict(rtol=5e-2, atol=5e-2)}
+
+
+def _normal(rng, shape, dtype, dev):
+    return torch.from_numpy(rng.standard_normal(shape).astype(np.float32)
+                            ).to(dev, dtype)
+
+
+@pytest.mark.parametrize("B,Hq,Hkv,S,d", [
+    (1, 4, 4, 256, 64), (2, 8, 2, 256, 64), (1, 4, 1, 512, 128),
+    (1, 14, 2, 200, 64), (2, 4, 4, 130, 80), (1, 4, 2, 100, 96)])
+@pytest.mark.parametrize("causal", [True, False])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
+                         ids=str)
+def test_flash_attention_kernel_equals_plain_on_card(B, Hq, Hkv, S, d,
+                                                     causal, dtype, card):
+    rng = np.random.default_rng(0)
+    q = _normal(rng, (B, Hq, S, d), dtype, card)
+    k = _normal(rng, (B, Hkv, S, d), dtype, card)
+    v = _normal(rng, (B, Hkv, S, d), dtype, card)
+    FA.reset_launches()
+    out = flash_attention(q, k, v, causal=causal)
+    assert FA.LAUNCHES == {"flash_attention_kernel": 1}
+    torch.cuda.synchronize()
+    want = attention_ref(q, k, v, causal=causal)
+    assert out.dtype == dtype and out.shape == q.shape
+    torch.testing.assert_close(out.float(), want.float(), **TOL[dtype])
+
+
+@pytest.mark.parametrize("B,S,Di,N", [
+    (1, 256, 512, 16), (2, 512, 256, 8), (1, 256, 1024, 16),
+    (2, 100, 70, 4), (1, 130, 48, 32)])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
+                         ids=str)
+def test_selective_scan_kernel_equals_plain_on_card(B, S, Di, N, dtype,
+                                                    card):
+    rng = np.random.default_rng(2)
+    x = _normal(rng, (B, S, Di), dtype, card)
+    dt = torch.from_numpy(np.logaddexp(
+        0.0, rng.standard_normal((B, S, Di)) - 2.0).astype(np.float32)
+    ).to(card, dtype)
+    A = torch.from_numpy(-np.exp(rng.standard_normal((Di, N)) * 0.3)
+                         .astype(np.float32)).to(card)
+    Bm = _normal(rng, (B, S, N), dtype, card)
+    Cm = _normal(rng, (B, S, N), dtype, card)
+    SS.reset_launches()
+    y = selective_scan(x, dt, A, Bm, Cm)
+    assert SS.LAUNCHES == {"selective_scan_kernel": 1}
+    torch.cuda.synchronize()
+    want = selective_scan_ref(x, dt, A, Bm, Cm)
+    assert y.dtype == dtype and y.shape == x.shape
+    torch.testing.assert_close(y.float(), want.float(), **SCAN_TOL[dtype])
+
+
+def test_rejected_shapes_raise_on_card_without_fallback(card):
+    rng = np.random.default_rng(5)
+    q = _normal(rng, (1, 4, 64, 32), torch.float32, card)
+    FA.reset_launches()
+    SS.reset_launches()
+    with pytest.raises(ValueError, match="head dim"):
+        flash_attention(q, q, q)
+    with pytest.raises(ValueError, match="Hq % Hkv"):
+        x = _normal(rng, (1, 3, 64, 64), torch.float32, card)
+        flash_attention(x, x[:, :2].contiguous(), x[:, :2].contiguous())
+    with pytest.raises(ValueError, match="several devices"):
+        x = _normal(rng, (1, 2, 64, 64), torch.float32, card)
+        flash_attention(x, x.cpu(), x)
+    x = _normal(rng, (1, 16, 32), torch.float32, card)
+    A = _normal(rng, (32, 64), torch.float32, card)
+    Bm = _normal(rng, (1, 16, 64), torch.float32, card)
+    with pytest.raises(ValueError, match="power of two"):
+        selective_scan(x, x, A, Bm, Bm)
+    assert FA.LAUNCHES == {"flash_attention_kernel": 0}
+    assert SS.LAUNCHES == {"selective_scan_kernel": 0}
