@@ -20,14 +20,19 @@ entry points (``repro_torch.kernels.*.ops``) at published model widths
 selective scan at falcon-mamba-7b width, S = 4096 — and holds each
 output against the plain version on the card at the tolerances of
 ``tests/test_kernels.py``, with the plain versions in full f32 (TF32
-off).  Each path is driven with every launch count at 0 just before it
-and read just after.  It prints one JSON line per phase, then the
+off); attention is also held to a relative RMS error per block of 64
+query rows, a limit that a control dropping one kv tile must exceed.
+bf16 attention must go to the tensor-core kernel and f32 to the
+CUDA-core one, and each attention case is timed warm and with the L2
+made cold before every call.  Each path is driven with every launch
+count at 0 just before it and read just after.  It prints one JSON line per phase, then the
 ``kernels`` line (every kernel: launches on its path, error, times,
 bound), the card's name and power limit, and last ``{"ok": true,
 "device": {...}}``.  Any failure raises, and the exit code is not 0;
 without a CUDA device it exits with 2 before printing any result.
 """
 import json
+import math
 import re
 import subprocess
 import sys
@@ -71,6 +76,13 @@ SFU_EXP_PER_CLOCK_PER_SM = 16
 # the tolerances of tests/test_kernels.py
 ATTN_TOL = {torch.float32: 1e-5, torch.bfloat16: 2e-2}
 SCAN_TOL = {torch.float32: 2e-4, torch.bfloat16: 5e-2}
+# the limit of an attention output's relative RMS error in every block of
+# 64 query rows of a head (block_rel_rms), which scales with the data
+# where the elementwise tolerance above does not: it lies between the
+# largest reading of sound runs and the reading of a control that drops
+# one kv tile (tile_drop_rms), both in PERF.md; tests/test_torch_gpu.py
+# holds the card tests to the same limits
+ATTN_RMS_LIMIT = {torch.float32: 1e-4, torch.bfloat16: 2e-2}
 
 PAPER_POLICY = dict(alpha_max=3.0, period=150.0)
 EXP7_POLICY = HVLB_CC_B(alpha_max=3.0, alpha_step=0.01)
@@ -162,7 +174,12 @@ def reset_all_launches() -> None:
 
 
 def all_launches() -> dict:
-    return {**K.LAUNCHES, **FA.LAUNCHES, **SS.LAUNCHES}
+    """Every kernel's launch count, and the attention launches split by
+    the kernel they went to (``flash_attention_kernel/wgmma_bf16``,
+    ``.../fma_f32``)."""
+    return {**K.LAUNCHES, **FA.LAUNCHES,
+            **{f"flash_attention_kernel/{k}": n
+               for k, n in FA.VARIANT_LAUNCHES.items()}, **SS.LAUNCHES}
 
 
 def ptxas_summary(log: str) -> dict:
@@ -181,6 +198,48 @@ def ptxas_summary(log: str) -> dict:
             out[name] = [int(m.group(1)), spill]
             name, spill = None, 0
     return out
+
+
+def attention_ptxas(log: str) -> dict:
+    """ptxas's lines for each attention kernel instance, keyed
+    ``wgmma_bf16<d>`` (tensor cores) or ``fma_f32<d>`` (CUDA cores):
+    registers, stack and spills, and any note that names the instance
+    (e.g. C7512: wgmma serialized)."""
+    def key(line):
+        m = re.search(r"flash_attention_(wgmma_)?kernelI(?:f)?Li(\d+)E", line)
+        return m and f"{'wgmma_bf16' if m.group(1) else 'fma_f32'}" \
+            f"<{m.group(2)}>"
+    out, name = {}, None
+    for line in log.splitlines():
+        k = key(line)
+        if "Compiling entry function" in line:
+            name = k
+            if k:
+                out.setdefault(k, [])
+        elif k and re.search(r"\(C\d+\)", line):
+            note = re.split(r" (?:in|for) the function| in function", line)
+            out.setdefault(k, []).append(note[0].strip())
+        elif name and ("bytes stack frame" in line or "Used" in line):
+            out[name].append(line.strip())
+    return out
+
+
+def cold_event_ms(fn, reps: int, flush: torch.Tensor) -> float:
+    """Mean CUDA-event time of ``fn`` with the L2 made cold before each
+    call by writing ``flush`` (larger than the 50 MB L2); the write is
+    outside the timed interval."""
+    fn()
+    total = 0.0
+    for i in range(reps):
+        flush.fill_(i & 0xFF)
+        a = torch.cuda.Event(enable_timing=True)
+        b = torch.cuda.Event(enable_timing=True)
+        a.record()
+        fn()
+        b.record()
+        torch.cuda.synchronize()
+        total += a.elapsed_time(b)
+    return total / reps
 
 
 def hold(name: str, got: torch.Tensor, want: torch.Tensor,
@@ -202,25 +261,100 @@ def hold(name: str, got: torch.Tensor, want: torch.Tensor,
     return err
 
 
+def block_rel_rms(got: torch.Tensor, want: torch.Tensor,
+                  rows: int = 64) -> float:
+    """The largest ``||got - want||_2 / ||want||_2`` over the blocks of
+    ``rows`` query rows of every (b, head) of a (B, H, S, d) output."""
+    B, H, S, d = want.shape
+    pad = -S % rows
+
+    def blocks(x):
+        return F.pad(x.float(), (0, 0, 0, pad)).reshape(B, H, -1, rows * d)
+
+    num = blocks(got.float() - want.float()).norm(dim=-1)
+    den = blocks(want).norm(dim=-1).clamp_min(1e-30)
+    return float((num / den).max())
+
+
+def tile_drop_rms(q, k, v, causal, want, rows: int = 64,
+                  tile: int = 64) -> float:
+    """A control for the limit: the block_rel_rms that a kernel would
+    read if it skipped, for the last ``rows`` query rows of (b 0, head 0),
+    the kv tile of ``tile`` keys that carries most of their softmax mass
+    (computed in f32, then rounded to the output's type)."""
+    S, d = q.shape[2], q.shape[3]
+    r0 = max(0, S - rows)
+    s = q[0, 0, r0:].float() @ k[0, 0].float().T / math.sqrt(d)
+    if causal:
+        pos = torch.arange(S, device=q.device)
+        s = s.masked_fill(pos[None, :] > pos[r0:, None], -1e30)
+    mass = F.pad(torch.softmax(s, -1), (0, -S % tile)).reshape(
+        S - r0, -1, tile).sum((0, 2))
+    t = int(mass.argmax())
+    s[:, t * tile:(t + 1) * tile] = -1e30
+    ctrl = (torch.softmax(s, -1) @ v[0, 0].float()).to(want.dtype)
+    return block_rel_rms(ctrl[None, None], want[:1, :1, r0:], rows)
+
+
 def attention_cases(dev):
     """One layer's prefill at published widths: (name, q, k, v, causal)
     with inputs from numpy, seed 0.  qwen3-8b in bf16 (its dtype) and
     f32, qwen2-0.5b (7:1 GQA, d = 64), hubert-xlarge (full attention,
-    d = 80); S = train_4k's sequence length, B = 1."""
+    d = 80), and qwen3-8b in bf16 with q and k scaled by 8, so that the
+    softmax is peaked and each output is O(1); S = train_4k's sequence
+    length, B = 1."""
     S = SHAPES["train_4k"].seq_len
     rng = np.random.default_rng(0)
     cases = []
-    for arch, dtype in (("qwen3-8b", torch.bfloat16),
-                        ("qwen3-8b", torch.float32),
-                        ("qwen2-0.5b", torch.bfloat16),
-                        ("hubert-xlarge", torch.bfloat16)):
+    for arch, dtype, scale in (("qwen3-8b", torch.bfloat16, 1.0),
+                               ("qwen3-8b", torch.float32, 1.0),
+                               ("qwen2-0.5b", torch.bfloat16, 1.0),
+                               ("hubert-xlarge", torch.bfloat16, 1.0),
+                               ("qwen3-8b", torch.bfloat16, 8.0)):
         cfg = get_arch(arch)
         d = cfg.head_dim
         q, k, v = (torch.from_numpy(rng.standard_normal(
             (1, h, S, d)).astype(np.float32)).to(dev, dtype)
             for h in (cfg.n_heads, cfg.n_kv_heads, cfg.n_kv_heads))
-        cases.append((f"{arch}/{str(dtype)[6:]}", q, k, v, cfg.causal))
+        name = f"{arch}/{str(dtype)[6:]}" + ("/peaked" if scale != 1 else "")
+        cases.append((name, q * scale, k * scale, v, cfg.causal))
     return cases
+
+
+def large_v_probe(dev) -> dict:
+    """q, k and v all scaled by 8 on inputs where the kernel missed the
+    elementwise bf16 tolerance (S = 200, d = 96, 8 / 2 heads, seed
+    200096): the kernel and SDPA's flash backend, which also rounds P to
+    bf16, against the plain version; the kernel's block_rel_rms must stay
+    in its limit and its max abs error within twice SDPA's."""
+    rng = np.random.default_rng(200096)
+    q, k, v = (torch.from_numpy(rng.standard_normal(
+        (1, h, 200, 96)).astype(np.float32)).to(dev, torch.bfloat16) * 8
+        for h in (8, 2, 2))
+    tol = ATTN_TOL[torch.bfloat16]
+    res = {}
+    for causal in (True, False):
+        want = attention_ref(q, k, v, causal=causal)
+        with torch.nn.attention.sdpa_kernel(
+                torch.nn.attention.SDPBackend.FLASH_ATTENTION):
+            lib = F.scaled_dot_product_attention(
+                q, k.repeat_interleave(4, 1), v.repeat_interleave(4, 1),
+                is_causal=causal)
+        got = flash_attention(q, k, v, causal=causal)
+        row = {}
+        for who, out in (("kernel", got), ("sdpa_flash", lib)):
+            diff = (out.float() - want.float()).abs()
+            row[who] = {
+                "max_abs_err": float(diff.max()),
+                "elementwise_ok": bool(
+                    (diff <= tol + tol * want.float().abs()).all()),
+                "block_rel_rms": block_rel_rms(out, want)}
+        if not (row["kernel"]["block_rel_rms"] <= ATTN_RMS_LIMIT[q.dtype]
+                and row["kernel"]["max_abs_err"]
+                <= 2 * row["sdpa_flash"]["max_abs_err"]):
+            raise AssertionError(f"large v: {row}")
+        res["causal" if causal else "full"] = row
+    return res
 
 
 def scan_cases(dev):
@@ -246,13 +380,16 @@ def scan_cases(dev):
     return cases
 
 
-def attention_bound(q, k, v, causal):
+def attention_flops(q, causal) -> int:
     B, Hq, S, d = q.shape
     pairs = S * (S + 1) // 2 if causal else S * S
-    flops = 4 * B * Hq * pairs * d
+    return 4 * B * Hq * pairs * d
+
+
+def attention_bound(q, k, v, causal):
     moved = nbytes((q, k, v)) + q.numel() * q.element_size()
     rate = BF16_OPS_PER_S if q.dtype == torch.bfloat16 else FP32_OPS_PER_S
-    return bound(moved, flops, rate)
+    return bound(moved, attention_flops(q, causal), rate)
 
 
 def scan_bound(args, exp_per_s):
@@ -324,13 +461,23 @@ def main() -> int:
         built = [f.result() for f in futures]
     built[0] = built[0].built
     build_wall = time.perf_counter() - t_build
+    attn_ptxas = attention_ptxas(built[1].log)
+    assert len(attn_ptxas) == 2 * len(FA.HEAD_DIMS), attn_ptxas
+    for name, lines in attn_ptxas.items():
+        if name.startswith("wgmma_bf16"):
+            # no spills, and no wgmma serialized by ptxas
+            assert any(" 0 bytes spill stores, 0 bytes spill loads" in ln
+                       for ln in lines), (name, lines)
+            assert not any("Performance Loss" in ln for ln in lines), \
+                (name, lines)
     emit({"phase": "device", "name": torch.cuda.get_device_name(0),
           "torch": torch.__version__, "cuda": torch.version.cuda,
           "sms": torch.cuda.get_device_properties(0).multi_processor_count,
           "build_wall_s": build_wall, "libraries": [
               {"name": b.name, "path": str(b.path.relative_to(ROOT)),
                "flags": " ".join(b.flags), "build_s": b.build_seconds,
-               "ptxas": ptxas_summary(b.log)} for b in built]})
+               "ptxas": ptxas_summary(b.log)} for b in built],
+          "attention_ptxas": attn_ptxas})
 
     # ---- 2. kernels against their plain versions on the card
     gp, tgp = paper_spg(), paper_topology()
@@ -476,27 +623,64 @@ def main() -> int:
     torch.backends.cuda.matmul.allow_tf32 = False   # plain versions in f32
     torch.backends.cudnn.allow_tf32 = False
     cases = attention_cases(dev)
-    outs = drive("attention", lambda: [
-        flash_attention(q, k, v, causal=c) for _, q, k, v, c in cases])
+    case_variants = []
+
+    def attention_path():
+        outs = []
+        for _, q, k, v, c in cases:
+            before = dict(FA.VARIANT_LAUNCHES)
+            outs.append(flash_attention(q, k, v, causal=c))
+            case_variants.append({n: FA.VARIANT_LAUNCHES[n] - before[n]
+                                  for n in before})
+        return outs
+
+    outs = drive("attention", attention_path)
+    flush = torch.empty(256 << 20, dtype=torch.uint8, device=dev)
     attn = {}
-    for (name, q, k, v, causal), out in zip(cases, outs):
-        err = hold(f"flash_attention_kernel {name}", out,
-                   attention_ref(q, k, v, causal=causal), ATTN_TOL[q.dtype])
-        del out
+    for (name, q, k, v, causal), out, var in zip(cases, outs, case_variants):
+        # each bf16 case went to the tensor-core kernel, f32 to the CUDA
+        # cores
+        want_var = "wgmma_bf16" if q.dtype == torch.bfloat16 else "fma_f32"
+        assert var == {**dict.fromkeys(var, 0), want_var: 1}, (name, var)
+        want = attention_ref(q, k, v, causal=causal)
+        err = hold(f"flash_attention_kernel {name}", out, want,
+                   ATTN_TOL[q.dtype])
+        # the relative check: this run's reading under the limit, the
+        # control's above it
+        rms, ctrl = block_rel_rms(out, want), tile_drop_rms(q, k, v, causal,
+                                                            want)
+        if not rms <= ATTN_RMS_LIMIT[q.dtype] < ctrl:
+            raise AssertionError(
+                f"flash_attention_kernel {name}: block relative RMS error "
+                f"{rms}, control {ctrl}, limit {ATTN_RMS_LIMIT[q.dtype]}")
+        del out, want
         ms = event_ms(lambda: flash_attention(q, k, v, causal=causal), 10)
+        cold_ms = cold_event_ms(
+            lambda: flash_attention(q, k, v, causal=causal), 10, flush)
         plain_ms = event_ms(lambda: attention_ref(q, k, v, causal=causal), 3)
-        lib_ms = event_ms(lambda: F.scaled_dot_product_attention(
-            q, k, v, is_causal=causal, enable_gqa=True), 10)
+        sdpa = lambda: F.scaled_dot_product_attention(  # noqa: E731
+            q, k, v, is_causal=causal, enable_gqa=True)
+        lib_ms = event_ms(sdpa, 10)
+        lib_cold_ms = cold_event_ms(sdpa, 10, flush)
         b_ms, b_by = attention_bound(q, k, v, causal)
+        flops = attention_flops(q, causal)
         attn[name] = {"B": q.shape[0], "Hq": q.shape[1], "Hkv": k.shape[1],
                       "S": q.shape[2], "d": q.shape[3], "causal": causal,
-                      "max_abs_err": err, "tol": ATTN_TOL[q.dtype], "ms": ms,
-                      "plain_ms": plain_ms, "library_ms": lib_ms,
-                      "bound_ms": b_ms, "bound_by": b_by}
-    del outs
+                      "variant": want_var, "launches": var,
+                      "max_abs_err": err, "tol": ATTN_TOL[q.dtype],
+                      "block_rel_rms": rms, "tile_drop_rms": ctrl,
+                      "rms_limit": ATTN_RMS_LIMIT[q.dtype], "ms": ms,
+                      "cold_ms": cold_ms, "plain_ms": plain_ms,
+                      "library_ms": lib_ms, "library_cold_ms": lib_cold_ms,
+                      "bound_ms": b_ms, "bound_by": b_by, "flops": flops,
+                      "tflop_s": flops / ms * 1e-9,
+                      "cold_tflop_s": flops / cold_ms * 1e-9,
+                      "bound_share": b_ms / ms,
+                      "cold_bound_share": b_ms / cold_ms}
+    del outs, flush
     emit({"phase": "attention", "entry": "repro_torch.kernels."
           "flash_attention.ops.flash_attention", "cases": attn,
-          "launches": paths["attention"]})
+          "large_v": large_v_probe(dev), "launches": paths["attention"]})
 
     # ---- 6. the selective-scan entry point at falcon-mamba-7b width
     smi_clock = subprocess.run(
@@ -539,8 +723,12 @@ def main() -> int:
         assert paths[name]["sched_plan_kernel"] == 0, (name, paths[name])
         assert paths[name]["sched_wave_kernel"] == (
             waves or paths[name]["sched_wave_kernel"]) > 0, (name, paths)
+    n_bf16 = sum(q.dtype == torch.bfloat16 for _, q, _, _, _ in cases)
     for name, counts in paths.items():
-        own = {"attention": {"flash_attention_kernel": len(cases)},
+        own = {"attention": {"flash_attention_kernel": len(cases),
+                             "flash_attention_kernel/wgmma_bf16": n_bf16,
+                             "flash_attention_kernel/fma_f32":
+                                 len(cases) - n_bf16},
                "scan": {"selective_scan_kernel": len(scases)}}.get(name)
         if own is None:
             own = {k: counts[k] for k in K.LAUNCHES}
@@ -568,6 +756,9 @@ def main() -> int:
          "path": "kernels.flash_attention.ops.flash_attention, "
                  + ", ".join(attn), "case": a0,
          "launches": paths["attention"]["flash_attention_kernel"],
+         "launches_by_variant": {
+             k.split("/")[1]: n for k, n in paths["attention"].items()
+             if k.startswith("flash_attention_kernel/")},
          "max_abs_err": max(c["max_abs_err"] for c in attn.values()),
          **{k: attn[a0][k] for k in ("ms", "plain_ms", "bound_ms",
                                      "bound_by", "library_ms")}},

@@ -7,8 +7,10 @@ repro_torch/`` of the checkout (listed in ``.gitignore``), under a name
 keyed by a hash of the sources and the flags, so a changed source or
 flag builds anew and an unchanged one is loaded as it is.  The output is
 written under a temporary name and renamed into place, so a process
-never loads a half-written library.  A missing ``nvcc`` or a failed
-build raises ``RuntimeError``; nothing falls back.
+never loads a half-written library; nvcc's output (ptxas's registers and
+spills) is kept beside it, so a library loaded as it is still reports
+them.  A missing ``nvcc`` or a failed build raises ``RuntimeError``;
+nothing falls back.
 
 Each library has a plain C interface; the caller sets each function's
 ``argtypes`` (``ctypes.c_void_p`` for pointers and the stream,
@@ -47,7 +49,8 @@ class Library:
     path: Path
     flags: Tuple[str, ...]
     build_seconds: float      # 0.0 when the hashed build already existed
-    log: str                  # nvcc's output (ptxas: registers, spills)
+    log: str                  # nvcc's output (ptxas: registers, spills),
+                              # kept beside the library as lib*.log
 
 
 def build(name: str, sources: Sequence[Path],
@@ -60,8 +63,12 @@ def build(name: str, sources: Sequence[Path],
     for src in sources:
         h.update(Path(src).read_bytes())
     out = BUILD_DIR / f"lib{name}_{h.hexdigest()[:16]}.so"
+    log_path = out.with_suffix(".log")
     seconds, log = 0.0, ""
-    if not out.exists():
+    if out.exists():
+        if log_path.exists():
+            log = log_path.read_text()
+    else:
         nvcc = None if CUDA_HOME is None else Path(CUDA_HOME) / "bin" / "nvcc"
         if nvcc is None or not nvcc.exists():
             raise RuntimeError(f"nvcc not found (CUDA_HOME is {CUDA_HOME!r}):"
@@ -77,6 +84,9 @@ def build(name: str, sources: Sequence[Path],
         if res.returncode != 0:
             raise RuntimeError(f"nvcc failed on {name} ({res.returncode}):\n"
                                f"{log}")
+        tmp_log = tmp.with_suffix(".log")
+        tmp_log.write_text(log)
+        os.replace(tmp_log, log_path)
         os.replace(tmp, out)
     return Library(name, ctypes.CDLL(str(out)), out, flags, seconds, log)
 

@@ -1,33 +1,64 @@
-// Causal or full GQA attention forward on Hopper (sm_90a): f32 or bf16
-// in, f32 math, output in the input's type.
+// Causal or full GQA attention forward on Hopper (sm_90a): two kernels
+// behind one launch function, chosen by the input's type.
 //
 // Replaces the TPU kernel src/repro/kernels/flash_attention/kernel.py:
-// _flash_kernel (launched by flash_attention_kernel).  Same algebra: q is
-// scaled by 1/sqrt(d) in f32, scores are q.k in f32, the online softmax
-// keeps a running max m, a running sum l and an f32 output accumulator,
-// masked scores are NEG_INF = -1e30, and the output is acc / max(l, 1e-30).
-// Query head h reads kv head h / (Hq / Hkv).
+// _flash_kernel (launched by flash_attention_kernel).  Same algebra:
+// scores q.k / sqrt(d) in f32, an online softmax with a running max m, a
+// running sum l and an f32 output accumulator, masked scores at
+// NEG_INF = -1e30, output acc / max(l, 1e-30) in q's type.  Query head h
+// reads kv head h / (Hq / Hkv); kv tiles above the diagonal are skipped
+// when causal, and the heaviest query tiles are scheduled first.
 //
 // What bounds it on the card: at the widths the repo configures (S = 4096,
 // d = 64..128) attention does about S/2 (causal) multiply-adds per byte
-// it must move, so it is bounded by operations, not bytes.  This kernel
-// does its products with scalar f32 FMAs on the CUDA cores, not the tensor
-// cores; in its inner loops a warp issues 12 (scores) or 8 + d/16 (P.V)
-// shared-memory loads per 32 (scores) or 8 * d/16 (P.V) FMAs per thread,
-// so shared-memory bandwidth, not the FMA rate, is its likely limit.
+// it must move, so it is bounded by operations, not bytes.
 //
-// Design:
-//   * one block of 128 threads per (query tile of BQ = 64 rows, q head, b);
-//     the heaviest causal tiles (the last rows) are scheduled first;
-//   * the q tile (pre-scaled) and each K/V tile of BK = 64 keys are staged
-//     in shared memory, converted to f32 once on load; rows of Q and K are
-//     padded to d + 1 floats so the score loop is free of bank conflicts;
+// bf16: flash_attention_wgmma_kernel, on the tensor cores.
+//   * one block of three warpgroups per (query tile of BM = 128 rows, q
+//     head, b): warpgroups 0 and 1 each own 64 query rows and compute,
+//     warpgroup 2 is the producer; setmaxnreg moves registers from the
+//     producer (24) to the consumers (240);
+//   * one producer thread loads Q once and K, V tiles of BN keys (128 at
+//     d <= 80, 64 at d = 96 and 128) with TMA (cp.async.bulk.tensor, 3-D
+//     maps (d, S, B*H) so a ragged tile reads zeros and never the next
+//     head's rows) into rings of ST = 2 stages, K and V each with their
+//     own mbarrier full / empty pair per stage, so a K stage is refilled
+//     once its Q.K^T is done;
+//   * rows are cut into 64-column boxes of 128 bytes, TMA's 128-byte
+//     swizzle; d = 80 and 96 fill their second box with TMA's zeros, and
+//     Q.K^T runs only d / 16 k-steps, so the zeros cost no tensor work;
+//   * S = Q.K^T is wgmma m64n{BN}k16 from shared memory (both K-major) into
+//     f32 registers; the scale is applied after the product, folded with
+//     log2(e) into ex2; the mask is applied on S's register layout on
+//     the tiles that need it (ragged last tile, diagonal tile);
+//   * P is rounded to bf16 in registers and is the register A operand of
+//     O += P.V, wgmma m64n{d}k16 with V as B in its stored key-major
+//     layout (wgmma's transpose bit), so P never touches shared memory;
+//   * the two consumer warpgroups take turns on the tensor cores (named
+//     barriers 1 and 2, FlashAttention-3's ping-pong): in its turn a
+//     warpgroup issues P.V of tile i-1, then Q.K^T of tile i, and hands
+//     the turn over; it runs tile i's softmax while the other one's
+//     products run.  P.V and Q.K^T are never in flight together: with
+//     both, ptxas serialises every wgmma at d = 96 and 128 ("insufficient
+//     register resources", C7512), and BN = 64 there keeps S + P + O
+//     (BN / 2 + BN / 4 + d / 2 registers) small enough for the turn;
+//   * l is summed from the f32 P per thread and reduced over the quad
+//     once at the end; O is divided and stored from registers, rows >= S
+//     skipped.
+// f32: flash_attention_kernel, on the CUDA cores (TF32 keeps about three
+// digits and would miss the 1e-5 tolerance of the f32 path).
+//   * one block of 128 threads per (query tile of BQ = 64 rows, q head,
+//     b); the q tile (pre-scaled) and each K/V tile of BK = 64 keys are
+//     staged in shared memory; rows of Q and K are padded to d + 1 floats
+//     so the score loop is free of bank conflicts;
 //   * each thread owns an 8 x 4 tile of the scores and an 8 x d/16 tile of
-//     the output accumulator in registers; the S x S scores never reach
-//     device memory;
-//   * kv tiles entirely above the diagonal are never loaded (causal);
-//   * exp is expf (no fast-math intrinsics), and f32 FMAs only: no TF32.
-// The kernel allocates nothing and launches on the caller's stream.
+//     the output accumulator in registers; scalar fmaf and expf only.
+// The S x S scores never reach device memory.  The kernels allocate
+// nothing and launch on the caller's stream.  The tensor maps are encoded
+// on the host in the launch function through the driver entry point
+// that the runtime hands out (cudaGetDriverEntryPoint), so the library
+// does not link libcuda.
+#include <cuda.h>
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <math.h>
@@ -35,19 +66,15 @@
 
 namespace {
 
+// ---------------------------------------------------------------- f32 path
+
 constexpr int BQ = 64;            // query rows per block
 constexpr int BK = 64;            // keys per kv tile
 constexpr int NT = 128;           // threads per block: 16 (cols) x 8 (rows)
 constexpr float NEG_INF = -1e30f;
 
 __device__ __forceinline__ float to_f32(float x) { return x; }
-__device__ __forceinline__ float to_f32(__nv_bfloat16 x) {
-  return __bfloat162float(x);
-}
 __device__ __forceinline__ void store(float* p, float x) { *p = x; }
-__device__ __forceinline__ void store(__nv_bfloat16* p, float x) {
-  *p = __float2bfloat16(x);
-}
 
 template <int D>
 constexpr int smem_floats() {
@@ -231,11 +258,567 @@ int dispatch(const void* q, const void* k, const void* v, void* o, int B,
   }
 }
 
+// ----------------------------------------------------- bf16 tensor-core path
+constexpr int BM = 128;           // query rows per block: 2 x 64
+// keys per kv tile: 128, or 64 where S, P and O would not fit in registers
+template <int D>
+__host__ __device__ constexpr int kv_tile() { return D <= 80 ? 128 : 64; }
+constexpr int ST = 2;             // stages of the K/V ring
+constexpr int NTW = 384;          // 2 consumer warpgroups + 1 producer
+constexpr int BOX = 128;          // bytes of one swizzled row box (64 bf16)
+
+__device__ __forceinline__ uint32_t smem_u32(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+__device__ __forceinline__ void mbar_init(uint32_t bar, int count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(bar),
+               "r"(count)
+               : "memory");
+}
+
+__device__ __forceinline__ void mbar_expect_tx(uint32_t bar, int bytes) {
+  asm volatile(
+      "mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(bar),
+      "r"(bytes)
+      : "memory");
+}
+
+__device__ __forceinline__ void mbar_arrive(uint32_t bar) {
+  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" ::"r"(bar)
+               : "memory");
+}
+
+// nanoseconds of the GPU's global timer
+__device__ __forceinline__ uint64_t global_ns() {
+  uint64_t t;
+  asm volatile("mov.u64 %0, %%globaltimer;\n" : "=l"(t));
+  return t;
+}
+
+// the longest an mbarrier wait may take: far longer than any load, or
+// any time slice another process takes on the card
+constexpr uint64_t WAIT_LIMIT_NS = 10ull * 1000 * 1000 * 1000;
+
+// returns once the phase of parity `parity` of the barrier has completed;
+// a wait that outlasts WAIT_LIMIT_NS by the global timer traps, so a lost
+// arrival is a launch error and not a hung card.  The timer is read once
+// every 1024 failed polls: a wait that ends sooner never reads it.
+__device__ __forceinline__ void mbar_wait(uint32_t bar, uint32_t parity) {
+  uint32_t done;
+  uint64_t t0 = 0;                 // the time of the first timer read
+  for (uint32_t polls = 1;; ++polls) {
+    asm volatile(
+        "{\n.reg .pred p;\n"
+        "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+        "selp.u32 %0, 1, 0, p;\n}\n"
+        : "=r"(done)
+        : "r"(bar), "r"(parity)
+        : "memory");
+    if (done) return;
+    if (polls % 1024 != 0) continue;
+    const uint64_t now = global_ns();
+    if (t0 == 0) t0 = now;
+    else if (now - t0 > WAIT_LIMIT_NS) __trap();
+  }
+}
+
+__device__ __forceinline__ void tma_load_3d(uint32_t dst,
+                                            const CUtensorMap* map,
+                                            uint32_t bar, int c0, int c1,
+                                            int c2) {
+  asm volatile(
+      "cp.async.bulk.tensor.3d.shared::cluster.global.mbarrier::complete_tx"
+      "::bytes [%0], [%1, {%3, %4, %5}], [%2];\n" ::"r"(dst),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(bar), "r"(c0), "r"(c1),
+      "r"(c2)
+      : "memory");
+}
+
+// wgmma shared-memory descriptor, 128-byte swizzle (layout type 1).
+// lbo/sbo in bytes: K-major tiles use sbo = 8 rows x 128 B (lbo unused);
+// the MN-major V tile uses lbo = the stride between 64-column boxes.
+__device__ __forceinline__ uint64_t sw128_desc(uint32_t addr, uint32_t lbo,
+                                               uint32_t sbo) {
+  return static_cast<uint64_t>((addr & 0x3FFFF) >> 4) |
+         (static_cast<uint64_t>(lbo >> 4) << 16) |
+         (static_cast<uint64_t>(sbo >> 4) << 32) | (1ull << 62);
+}
+
+__device__ __forceinline__ void wgmma_fence() {
+  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
+}
+__device__ __forceinline__ void wgmma_commit() {
+  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
+}
+// waits until at most N committed wgmma groups of the warpgroup are in
+// flight
+template <int N>
+__device__ __forceinline__ void wgmma_wait() {
+  asm volatile("wgmma.wait_group.sync.aligned %0;\n" ::"n"(N) : "memory");
+}
+// pins a register at this point of the program: a read of an accumulator
+// after it sees the value the finished wgmma wrote, and a register that
+// an in-flight wgmma reads is not reused before it
+template <int N>
+__device__ __forceinline__ void pin(float (&r)[N]) {
+#pragma unroll
+  for (int i = 0; i < N; ++i) asm volatile("" : "+f"(r[i])::"memory");
+}
+__device__ __forceinline__ void pin(uint32_t (&r)[4]) {
+#pragma unroll
+  for (int i = 0; i < 4; ++i) asm volatile("" : "+r"(r[i])::"memory");
+}
+
+// named barriers 1.. of the two consumer warpgroups (256 threads):
+// warpgroup w waits on its turn, the other one hands it over
+__device__ __forceinline__ void named_sync(int id) {
+  asm volatile("bar.sync %0, 256;\n" ::"r"(id) : "memory");
+}
+__device__ __forceinline__ void named_arrive(int id) {
+  asm volatile("bar.arrive %0, 256;\n" ::"r"(id) : "memory");
+}
+
+__device__ __forceinline__ float ex2(float x) {
+  float y;
+  asm("ex2.approx.ftz.f32 %0, %1;\n" : "=f"(y) : "f"(x));
+  return y;
+}
+
+__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
+  __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
+  return *reinterpret_cast<uint32_t*>(&v);
+}
+
+// d (+)= A . B, m64nNk16, bf16 in, f32 accumulators.  Accumulator i of a
+// thread (lane l of warp w of the warpgroup) holds row 16 w + l / 4
+// (+ 8 when i % 4 >= 2), column 8 (i / 4) + 2 (l % 4) + i % 2.  The
+// family is generated below for N = 64, 80, 96, 128: FA_ACC_N is the
+// asm list of the N / 2 accumulators, FA_D_N(c) their operands with
+// constraint c: FA_SET ("=f") where the instruction overwrites d (scale-d
+// 0, the first k-step, so no uninitialised register is read), FA_ADD
+// ("+f") where it adds to d (scale-d 1).
+#define FA_ACC_64                                                    \
+  "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, " \
+  "%15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, " \
+  "%28, %29, %30, %31"
+#define FA_ACC_80 FA_ACC_64 ", %32, %33, %34, %35, %36, %37, %38, %39"
+#define FA_ACC_96 FA_ACC_80 ", %40, %41, %42, %43, %44, %45, %46, %47"
+#define FA_ACC_128                                                       \
+  FA_ACC_96 ", %48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, " \
+  "%59, %60, %61, %62, %63"
+#define FA_D8(c, i)                                                   \
+  c(d[i]), c(d[i + 1]), c(d[i + 2]), c(d[i + 3]), c(d[i + 4]),        \
+      c(d[i + 5]), c(d[i + 6]), c(d[i + 7])
+#define FA_D_64(c) FA_D8(c, 0), FA_D8(c, 8), FA_D8(c, 16), FA_D8(c, 24)
+#define FA_D_80(c) FA_D_64(c), FA_D8(c, 32)
+#define FA_D_96(c) FA_D_80(c), FA_D8(c, 40)
+#define FA_D_128(c) FA_D_96(c), FA_D8(c, 48), FA_D8(c, 56)
+#define FA_SET(x) "=f"(x)
+#define FA_ADD(x) "+f"(x)
+
+// NAME(d, da, db): d (+)= A . B, both from shared memory, K-major;
+// OPS names the asm operands of da and db
+#define FA_WGMMA_SS(NAME, N, CONS, SCALE_D, OPS)                        \
+  __device__ __forceinline__ void NAME(float(&d)[N / 2], uint64_t da,   \
+                                       uint64_t db) {                   \
+    asm volatile("{\n.reg .pred p;\nsetp.ne.b32 p, " #SCALE_D ", 0;\n"  \
+                 "wgmma.mma_async.sync.aligned.m64n" #N                 \
+                 "k16.f32.bf16.bf16 {" FA_ACC_##N "}, " OPS             \
+                 ", p, 1, 1, 0, 0;\n}\n"                                \
+                 : FA_D_##N(CONS)                                       \
+                 : "l"(da), "l"(db));                                   \
+  }
+FA_WGMMA_SS(wgmma_ss_n64_zero, 64, FA_SET, 0, "%32, %33")
+FA_WGMMA_SS(wgmma_ss_n64, 64, FA_ADD, 1, "%32, %33")
+FA_WGMMA_SS(wgmma_ss_n128_zero, 128, FA_SET, 0, "%64, %65")
+FA_WGMMA_SS(wgmma_ss_n128, 128, FA_ADD, 1, "%64, %65")
+
+// d += A . B with A (64 x 16 bf16) in registers, B MN-major in shared
+// memory (transpose bit set), m64nNk16; OPS names the asm operands of A's
+// four registers and db
+template <int N>
+__device__ __forceinline__ void wgmma_rs(float (&d)[N / 2],
+                                         const uint32_t (&a)[4], uint64_t db);
+#define FA_WGMMA_RS(N, OPS)                                               \
+  template <>                                                             \
+  __device__ __forceinline__ void wgmma_rs<N>(                            \
+      float(&d)[N / 2], const uint32_t(&a)[4], uint64_t db) {             \
+    asm volatile("{\n.reg .pred p;\nsetp.ne.b32 p, 1, 0;\n"               \
+                 "wgmma.mma_async.sync.aligned.m64n" #N                   \
+                 "k16.f32.bf16.bf16 {" FA_ACC_##N "}, " OPS               \
+                 ", p, 1, 1, 1;\n}\n"                                     \
+                 : FA_D_##N(FA_ADD)                                       \
+                 : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db));  \
+  }
+FA_WGMMA_RS(64, "{%32, %33, %34, %35}, %36")
+FA_WGMMA_RS(80, "{%40, %41, %42, %43}, %44")
+FA_WGMMA_RS(96, "{%48, %49, %50, %51}, %52")
+FA_WGMMA_RS(128, "{%64, %65, %66, %67}, %68")
+
+template <int D>
+constexpr int wgmma_smem_bytes() {
+  constexpr int BN = kv_tile<D>();
+  // 1 KB of alignment slack, Q (BM rows), ST stages of K and V (BN rows),
+  // each row cut into (D + 63) / 64 boxes of 128 bytes, then 1 + 4 ST
+  // mbarriers
+  return 1024 + ((D + 63) / 64) * BOX * (BM + 2 * ST * BN) + 8 * (1 + 4 * ST);
+}
+
+// S = Q . K^T for one warpgroup's 64 rows and one kv tile: d / 16
+// k-steps of 32 bytes inside the 128-byte boxes, both operands K-major
+template <int D, int BN = kv_tile<D>()>
+__device__ __forceinline__ void issue_qk(float (&sc)[BN / 2], uint32_t qa,
+                                         uint32_t kt) {
+#pragma unroll
+  for (int kk = 0; kk < D / 16; ++kk) {
+    const uint32_t off = (kk % 4) * 32;          // inside the box
+    const uint64_t da = sw128_desc(qa + (kk / 4) * BM * BOX + off, 16, 8 * BOX);
+    const uint64_t db = sw128_desc(kt + (kk / 4) * BN * BOX + off, 16, 8 * BOX);
+    if constexpr (BN == 128) {
+      if (kk == 0) wgmma_ss_n128_zero(sc, da, db);
+      else wgmma_ss_n128(sc, da, db);
+    } else {
+      if (kk == 0) wgmma_ss_n64_zero(sc, da, db);
+      else wgmma_ss_n64(sc, da, db);
+    }
+  }
+}
+
+// O += P . V: V's BN x D tile is the MN-major B operand, its 64-column
+// boxes BN * 128 bytes apart
+template <int D, int BN = kv_tile<D>()>
+__device__ __forceinline__ void issue_pv(float (&acc)[D / 2],
+                                         uint32_t (&pf)[BN / 16][4],
+                                         uint32_t vt) {
+#pragma unroll
+  for (int kk = 0; kk < BN / 16; ++kk)
+    wgmma_rs<D>(acc, pf[kk], sw128_desc(vt + kk * 16 * BOX, BN * BOX, 8 * BOX));
+}
+
+// The softmax of one tile on S's register layout, in the log2 domain:
+// masks (when `edge`), updates the running maxima m0, m1 of rows r0 and
+// r0 + 8, overwrites sc with P = 2^(s - m) in f32, adds P's row sums to
+// the thread's partial l0, l1, and returns the factors al0, al1 that
+// rescale the accumulator rows to the new maxima.
+template <int BN>
+__device__ __forceinline__ void softmax_tile(float (&sc)[BN / 2], bool edge,
+                                             int k0, int r0, int cq, int S,
+                                             int causal, float scale_log2,
+                                             float& m0, float& m1, float& l0,
+                                             float& l1, float& al0,
+                                             float& al1) {
+  float mx0 = NEG_INF, mx1 = NEG_INF;
+#pragma unroll
+  for (int j = 0; j < BN / 8; ++j)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      float x = sc[4 * j + e] * scale_log2;
+      if (edge) {
+        const int key = k0 + 8 * j + cq + (e & 1);
+        const int row = e < 2 ? r0 : r0 + 8;
+        if (key >= S || (causal && key > row)) x = NEG_INF;
+      }
+      sc[4 * j + e] = x;
+      if (e < 2) mx0 = fmaxf(mx0, x);
+      else mx1 = fmaxf(mx1, x);
+    }
+#pragma unroll
+  for (int sh = 1; sh <= 2; sh <<= 1) {
+    mx0 = fmaxf(mx0, __shfl_xor_sync(0xffffffffu, mx0, sh));
+    mx1 = fmaxf(mx1, __shfl_xor_sync(0xffffffffu, mx1, sh));
+  }
+  const float mn0 = fmaxf(m0, mx0), mn1 = fmaxf(m1, mx1);
+  al0 = ex2(m0 - mn0);
+  al1 = ex2(m1 - mn1);
+  m0 = mn0;
+  m1 = mn1;
+  float rs0 = 0.f, rs1 = 0.f;
+#pragma unroll
+  for (int j = 0; j < BN / 8; ++j)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      const float pv = ex2(sc[4 * j + e] - (e < 2 ? mn0 : mn1));
+      sc[4 * j + e] = pv;
+      if (e < 2) rs0 += pv;
+      else rs1 += pv;
+    }
+  l0 = l0 * al0 + rs0;
+  l1 = l1 * al1 + rs1;
+}
+
+// rescales the accumulator rows, then rounds P to bf16 as the register A
+// fragments of P . V: fragment kk holds rows (r0, r0 + 8) x keys
+// 16 kk .. 16 kk + 15, i.e. accumulators 8 kk .. 8 kk + 7 of S
+template <int D, int BN = kv_tile<D>()>
+__device__ __forceinline__ void rescale_and_pack(float (&acc)[D / 2],
+                                                 float al0, float al1,
+                                                 const float (&sc)[BN / 2],
+                                                 uint32_t (&pf)[BN / 16][4]) {
+#pragma unroll
+  for (int j = 0; j < D / 8; ++j) {
+    acc[4 * j] *= al0;
+    acc[4 * j + 1] *= al0;
+    acc[4 * j + 2] *= al1;
+    acc[4 * j + 3] *= al1;
+  }
+#pragma unroll
+  for (int kk = 0; kk < BN / 16; ++kk)
+#pragma unroll
+    for (int f = 0; f < 4; ++f)
+      pf[kk][f] = pack_bf16(sc[8 * kk + 2 * f], sc[8 * kk + 2 * f + 1]);
+}
+
+template <int D>
+__global__ void __launch_bounds__(NTW, 1)
+flash_attention_wgmma_kernel(const __grid_constant__ CUtensorMap tq,
+                             const __grid_constant__ CUtensorMap tk,
+                             const __grid_constant__ CUtensorMap tv,
+                             __nv_bfloat16* __restrict__ o, int B, int Hq,
+                             int Hkv, int S, int causal, float scale_log2) {
+  static_assert(D % 16 == 0 && D <= 128, "head dim: a multiple of 16, <= 128");
+  constexpr int BN = kv_tile<D>();
+  constexpr int NC = (D + 63) / 64;      // 128-byte boxes per row
+  constexpr int STAGE = NC * BN * BOX;   // bytes of one K or V tile
+  extern __shared__ uint8_t smem_raw[];
+  const uint32_t raw = smem_u32(smem_raw);
+  const uint32_t qs = (raw + 1023) & ~1023u;     // swizzle atoms: 1 KB
+  const uint32_t ks = qs + NC * BM * BOX;
+  const uint32_t vs = ks + ST * STAGE;
+  const uint32_t bars = vs + ST * STAGE;
+  // the barriers: Q full; per stage K full, V full, K empty, V empty
+  const uint32_t q_full = bars;
+  auto bar = [&](int kind, int s) { return bars + 8 * (1 + kind * ST + s); };
+  enum { K_FULL, V_FULL, K_EMPTY, V_EMPTY };
+
+  // heaviest query tiles first, over every (b, head)
+  const int n_qt = (S + BM - 1) / BM;
+  const int bhq = blockIdx.x % (B * Hq);
+  const int qt = n_qt - 1 - blockIdx.x / (B * Hq);
+  const int h = bhq % Hq, b = bhq / Hq;
+  const int bhk = b * Hkv + h / (Hq / Hkv);
+  const int q0 = qt * BM;
+  const int n_all = (S + BN - 1) / BN;
+  const int n_kv = causal ? min(n_all, (q0 + BM - 1) / BN + 1) : n_all;
+
+  if (threadIdx.x == 0) {
+    mbar_init(q_full, 1);
+    for (int s = 0; s < ST; ++s) {
+      mbar_init(bar(K_FULL, s), 1);
+      mbar_init(bar(V_FULL, s), 1);
+      mbar_init(bar(K_EMPTY, s), 2 * 128);   // every consumer thread
+      mbar_init(bar(V_EMPTY, s), 2 * 128);
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
+
+  const int wg = threadIdx.x / 128;
+  if (wg == 2) {
+    // ---- producer warpgroup: one thread issues every load
+    asm volatile("setmaxnreg.dec.sync.aligned.u32 24;\n");
+    if (threadIdx.x == 256) {
+      mbar_expect_tx(q_full, NC * BM * BOX);
+      for (int c = 0; c < NC; ++c)
+        tma_load_3d(qs + c * BM * BOX, &tq, q_full, 64 * c, q0, b * Hq + h);
+      for (int i = 0; i < n_kv; ++i) {
+        const int s = i % ST;
+        const uint32_t ph = ((i / ST) - 1) & 1;    // of the stage's release
+        if (i >= ST) mbar_wait(bar(K_EMPTY, s), ph);
+        mbar_expect_tx(bar(K_FULL, s), STAGE);
+        for (int c = 0; c < NC; ++c)
+          tma_load_3d(ks + s * STAGE + c * BN * BOX, &tk, bar(K_FULL, s),
+                      64 * c, i * BN, bhk);
+        if (i >= ST) mbar_wait(bar(V_EMPTY, s), ph);
+        mbar_expect_tx(bar(V_FULL, s), STAGE);
+        for (int c = 0; c < NC; ++c)
+          tma_load_3d(vs + s * STAGE + c * BN * BOX, &tv, bar(V_FULL, s),
+                      64 * c, i * BN, bhk);
+      }
+    }
+  } else {
+    // ---- consumer warpgroups: 64 query rows each.  The two warpgroups
+    // take turns on the tensor cores (named barriers 1 and 2): one issues
+    // its P.V of tile i-1 and Q.K^T of tile i while the other runs its
+    // softmax, so the exps and the products overlap.
+    asm volatile("setmaxnreg.inc.sync.aligned.u32 240;\n");
+    const int t = threadIdx.x % 128;
+    const int lane = t % 32;
+    const int r0 = q0 + wg * 64 + (t / 32) * 16 + lane / 4;   // and r0 + 8
+    const int cq = 2 * (lane % 4);
+    const uint32_t qa = qs + wg * 64 * BOX;
+    const int qmin = q0 + wg * 64;        // the warpgroup's first row
+    float acc[D / 2];
+#pragma unroll
+    for (int i = 0; i < D / 2; ++i) acc[i] = 0.f;
+    float m0 = NEG_INF, m1 = NEG_INF, l0 = 0.f, l1 = 0.f, al0, al1;
+    float sc[BN / 2];
+    uint32_t pf[BN / 16][4];
+    // turn w is barrier 1 + w: warpgroup w syncs on it, the other one
+    // arrives; warpgroup 0 goes first, and warpgroup 1 does not arrive
+    // after its last turn, so every arrival is consumed
+    if (wg == 1) named_arrive(1);
+    mbar_wait(q_full, 0);
+
+    // turn 0: S = Q . K^T of tile 0
+    mbar_wait(bar(K_FULL, 0), 0);
+    named_sync(1 + wg);
+    wgmma_fence();
+    issue_qk<D>(sc, qa, ks);
+    wgmma_commit();
+    named_arrive(2 - wg);
+    wgmma_wait<0>();
+    pin(sc);
+    mbar_arrive(bar(K_EMPTY, 0));
+    softmax_tile<BN>(sc, BN > S || (causal && BN - 1 > qmin), 0, r0, cq, S,
+                 causal, scale_log2, m0, m1, l0, l1, al0, al1);
+    rescale_and_pack<D>(acc, al0, al1, sc, pf);
+
+    // turn i: O += P . V of tile i-1, then S = Q . K^T of tile i
+    for (int i = 1; i < n_kv; ++i) {
+      const int sp = (i - 1) % ST, s = i % ST;
+      mbar_wait(bar(V_FULL, sp), ((i - 1) / ST) & 1);
+      mbar_wait(bar(K_FULL, s), (i / ST) & 1);
+      named_sync(1 + wg);
+      pin(acc);
+#pragma unroll
+      for (int kk = 0; kk < BN / 16; ++kk) pin(pf[kk]);
+      wgmma_fence();
+      issue_pv<D>(acc, pf, vs + sp * STAGE);
+      wgmma_commit();
+      wgmma_wait<0>();
+      pin(acc);
+#pragma unroll
+      for (int kk = 0; kk < BN / 16; ++kk) pin(pf[kk]);
+      issue_qk<D>(sc, qa, ks + s * STAGE);
+      wgmma_commit();
+      named_arrive(2 - wg);
+      mbar_arrive(bar(V_EMPTY, sp));
+      wgmma_wait<0>();
+      pin(sc);
+      mbar_arrive(bar(K_EMPTY, s));
+      const int k0 = i * BN;
+      softmax_tile<BN>(sc, k0 + BN > S || (causal && k0 + BN - 1 > qmin), k0,
+                   r0, cq, S, causal, scale_log2, m0, m1, l0, l1, al0, al1);
+      rescale_and_pack<D>(acc, al0, al1, sc, pf);
+    }
+
+    // last turn: O += P . V of the last tile
+    const int sl = (n_kv - 1) % ST;
+    mbar_wait(bar(V_FULL, sl), ((n_kv - 1) / ST) & 1);
+    named_sync(1 + wg);
+    pin(acc);
+#pragma unroll
+    for (int kk = 0; kk < BN / 16; ++kk) pin(pf[kk]);
+    wgmma_fence();
+    issue_pv<D>(acc, pf, vs + sl * STAGE);
+    wgmma_commit();
+    wgmma_wait<0>();
+    pin(acc);
+#pragma unroll
+    for (int kk = 0; kk < BN / 16; ++kk) pin(pf[kk]);
+    if (wg == 0) named_arrive(2);
+    mbar_arrive(bar(V_EMPTY, sl));
+
+#pragma unroll
+    for (int sh = 1; sh <= 2; sh <<= 1) {
+      l0 += __shfl_xor_sync(0xffffffffu, l0, sh);
+      l1 += __shfl_xor_sync(0xffffffffu, l1, sh);
+    }
+    const float inv0 = 1.f / fmaxf(l0, 1e-30f), inv1 = 1.f / fmaxf(l1, 1e-30f);
+    __nv_bfloat16* ob = o + ((size_t)b * Hq + h) * S * D;
+#pragma unroll
+    for (int j = 0; j < D / 8; ++j) {
+      const int c = 8 * j + cq;
+      if (r0 < S)
+        *reinterpret_cast<__nv_bfloat162*>(ob + (size_t)r0 * D + c) =
+            __floats2bfloat162_rn(acc[4 * j] * inv0, acc[4 * j + 1] * inv0);
+      if (r0 + 8 < S)
+        *reinterpret_cast<__nv_bfloat162*>(ob + (size_t)(r0 + 8) * D + c) =
+            __floats2bfloat162_rn(acc[4 * j + 2] * inv1,
+                                  acc[4 * j + 3] * inv1);
+    }
+  }
+}
+
+using EncodeTiled = decltype(&cuTensorMapEncodeTiled);
+
+// cuTensorMapEncodeTiled from the driver, through the runtime (no -lcuda)
+EncodeTiled encode_tiled() {
+  static EncodeTiled fn = nullptr;
+  if (fn == nullptr) {
+    void* p = nullptr;
+    cudaDriverEntryPointQueryResult q;
+#if CUDART_VERSION >= 12050
+    cudaError_t e = cudaGetDriverEntryPointByVersion(
+        "cuTensorMapEncodeTiled", &p, 12000, cudaEnableDefault, &q);
+#else
+    cudaError_t e = cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &p,
+                                            cudaEnableDefault, &q);
+#endif
+    if (e == cudaSuccess && q == cudaDriverEntryPointSuccess)
+      fn = reinterpret_cast<EncodeTiled>(p);
+  }
+  return fn;
+}
+
+// a bf16 (B*H, S, D) tensor as a 3-D map (D, S, B*H) read in boxes of 64
+// columns x `rows` rows, 128-byte swizzle, zeros outside the tensor
+bool encode_map(CUtensorMap* map, const void* ptr, int D, int S, int BH,
+                int rows) {
+  EncodeTiled enc = encode_tiled();
+  if (enc == nullptr) return false;
+  const cuuint64_t dims[3] = {(cuuint64_t)D, (cuuint64_t)S, (cuuint64_t)BH};
+  const cuuint64_t strides[2] = {(cuuint64_t)D * 2, (cuuint64_t)S * D * 2};
+  const cuuint32_t box[3] = {64, (cuuint32_t)rows, 1};
+  const cuuint32_t elem[3] = {1, 1, 1};
+  return enc(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 3, const_cast<void*>(ptr),
+             dims, strides, box, elem, CU_TENSOR_MAP_INTERLEAVE_NONE,
+             CU_TENSOR_MAP_SWIZZLE_128B, CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
+             CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
+}
+
+template <int D>
+int launch_wgmma(const void* q, const void* k, const void* v, void* o, int B,
+                 int Hq, int Hkv, int S, int causal, cudaStream_t stream) {
+  constexpr int BN = kv_tile<D>();
+  CUtensorMap tq, tk, tv;
+  if (!encode_map(&tq, q, D, S, B * Hq, BM) ||
+      !encode_map(&tk, k, D, S, B * Hkv, BN) ||
+      !encode_map(&tv, v, D, S, B * Hkv, BN))
+    return (int)cudaErrorInvalidValue;
+  const int smem = wgmma_smem_bytes<D>();
+  auto kern = flash_attention_wgmma_kernel<D>;
+  cudaError_t e = cudaFuncSetAttribute(
+      kern, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (e != cudaSuccess) return (int)e;
+  const long long blocks = (long long)((S + BM - 1) / BM) * Hq * B;
+  if (blocks > 0x7fffffffLL) return (int)cudaErrorInvalidValue;
+  const float scale_log2 = (float)(1.4426950408889634 / sqrt((double)D));
+  kern<<<(unsigned)blocks, NTW, smem, stream>>>(
+      tq, tk, tv, static_cast<__nv_bfloat16*>(o), B, Hq, Hkv, S, causal,
+      scale_log2);
+  return (int)cudaGetLastError();
+}
+
+int dispatch_wgmma(const void* q, const void* k, const void* v, void* o,
+                   int B, int Hq, int Hkv, int S, int D, int causal,
+                   cudaStream_t st) {
+  switch (D) {
+    case 64: return launch_wgmma<64>(q, k, v, o, B, Hq, Hkv, S, causal, st);
+    case 80: return launch_wgmma<80>(q, k, v, o, B, Hq, Hkv, S, causal, st);
+    case 96: return launch_wgmma<96>(q, k, v, o, B, Hq, Hkv, S, causal, st);
+    case 128: return launch_wgmma<128>(q, k, v, o, B, Hq, Hkv, S, causal, st);
+    default: return (int)cudaErrorInvalidValue;
+  }
+}
+
 }  // namespace
 
 // q (B, Hq, S, D), k and v (B, Hkv, S, D), o like q; all contiguous, of
-// one type (bf16 != 0: __nv_bfloat16, else float).  Returns the CUDA
-// error code of the launch (0 on success).
+// one type.  bf16 != 0: __nv_bfloat16, 16-byte aligned, through the
+// tensor-core kernel; else float, through the CUDA-core kernel.  Returns
+// the CUDA error code of the launch (0 on success).
 extern "C" int flash_attention_launch(const void* q, const void* k,
                                       const void* v, void* o, int B, int Hq,
                                       int Hkv, int S, int D, int causal,
@@ -244,7 +827,6 @@ extern "C" int flash_attention_launch(const void* q, const void* k,
       Hq % Hkv != 0)
     return (int)cudaErrorInvalidValue;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  return bf16 ? dispatch<__nv_bfloat16>(q, k, v, o, B, Hq, Hkv, S, D,
-                                        causal, st)
+  return bf16 ? dispatch_wgmma(q, k, v, o, B, Hq, Hkv, S, D, causal, st)
               : dispatch<float>(q, k, v, o, B, Hq, Hkv, S, D, causal, st);
 }

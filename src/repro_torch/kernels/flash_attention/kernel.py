@@ -3,12 +3,16 @@ CUDA kernel ``flash_attention_kernel`` (``kernels/csrc/
 flash_attention.cu``), the twin of ``repro.kernels.flash_attention.
 kernel``.
 
-The TPU kernel's ``block_q``/``block_k`` are its tiling; the CUDA kernel
-picks its own tiles (64 query rows by 64 keys).  The wrapper checks
-device, dtype, shape and contiguity and raises on what the kernel does
-not take; on CUDA tensors it launches the kernel or raises, on CPU
+The TPU kernel's ``block_q``/``block_k`` are its tiling; the CUDA
+kernels pick their own.  The launch function chooses the kernel by the
+inputs' dtype: bfloat16 runs on the tensor cores (wgmma, TMA, 128 query
+rows by 128 keys), float32 on the CUDA cores (scalar f32 FMAs, 64 by
+64), since TF32 would miss the f32 path's 1e-5 tolerance.  The wrapper
+checks device, dtype, shape and contiguity and raises on what the kernel
+does not take; on CUDA tensors it launches the kernel or raises, on CPU
 tensors it runs the plain version (:func:`.ref.attention_ref`).
-:data:`LAUNCHES` counts kernel launches.
+:data:`LAUNCHES` counts kernel launches, :data:`VARIANT_LAUNCHES` the
+launches of each of the two kernels.
 """
 from __future__ import annotations
 
@@ -22,7 +26,7 @@ from ... import _nvcc
 from .._common import check_dtype
 from .ref import attention_ref
 
-__all__ = ["HEAD_DIMS", "LAUNCHES", "build_library",
+__all__ = ["HEAD_DIMS", "LAUNCHES", "VARIANT_LAUNCHES", "build_library",
            "flash_attention_kernel", "reset_launches"]
 
 SOURCE = Path(__file__).resolve().parents[1] / "csrc" / "flash_attention.cu"
@@ -31,6 +35,8 @@ NVCC_FLAGS = _nvcc.BASE_FLAGS
 HEAD_DIMS = (64, 80, 96, 128)
 
 LAUNCHES: Dict[str, int] = {"flash_attention_kernel": 0}
+# the kernel each launch went to: bf16 -> tensor cores, f32 -> CUDA cores
+VARIANT_LAUNCHES: Dict[str, int] = {"wgmma_bf16": 0, "fma_f32": 0}
 
 _LIB: Optional[_nvcc.Library] = None
 _P = ctypes.c_void_p
@@ -38,8 +44,9 @@ _I = ctypes.c_int
 
 
 def reset_launches() -> None:
-    for k in LAUNCHES:
-        LAUNCHES[k] = 0
+    for counts in (LAUNCHES, VARIANT_LAUNCHES):
+        for k in counts:
+            counts[k] = 0
 
 
 def build_library() -> _nvcc.Library:
@@ -81,6 +88,10 @@ def flash_attention_kernel(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     _check(q, k, v)
     if not _nvcc.on_cuda((q, k, v)):
         return attention_ref(q, k, v, causal=causal)
+    bf16 = q.dtype == torch.bfloat16
+    if bf16 and any(t.data_ptr() % 16 for t in (q, k, v)):
+        raise ValueError("flash_attention_kernel: bfloat16 inputs must be "
+                         "16-byte aligned (TMA)")
     lib = build_library()
     B, Hq, S, d = q.shape
     out = torch.empty_like(q)
@@ -88,8 +99,8 @@ def flash_attention_kernel(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         stream = torch.cuda.current_stream(q.device).cuda_stream
         rc = lib.lib.flash_attention_launch(
             q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), B, Hq,
-            k.shape[1], S, d, int(causal), int(q.dtype == torch.bfloat16),
-            stream)
+            k.shape[1], S, d, int(causal), int(bf16), stream)
     _nvcc.raise_on(rc, "flash_attention_kernel")
     LAUNCHES["flash_attention_kernel"] += 1
+    VARIANT_LAUNCHES["wgmma_bf16" if bf16 else "fma_f32"] += 1
     return out

@@ -139,25 +139,99 @@ def _normal(rng, shape, dtype, dev):
                             ).to(dev, dtype)
 
 
-@pytest.mark.parametrize("B,Hq,Hkv,S,d", [
-    (1, 4, 4, 256, 64), (2, 8, 2, 256, 64), (1, 4, 1, 512, 128),
-    (1, 14, 2, 200, 64), (2, 4, 4, 130, 80), (1, 4, 2, 100, 96)])
+# the relative RMS error of each block of 64 query rows of a head, the
+# limit that scales with the data (chip_smoke.py's ATTN_RMS_LIMIT)
+RMS_LIMIT = {torch.float32: 1e-4, torch.bfloat16: 2e-2}
+
+
+def _block_rel_rms(got, want, rows=64):
+    """The largest ||got - want|| / ||want|| over the blocks of ``rows``
+    query rows of every (b, head)."""
+    B, H, S, d = want.shape
+    pad = -S % rows
+
+    def blocks(x):
+        return torch.nn.functional.pad(x, (0, 0, 0, pad)).reshape(
+            B, H, -1, rows * d)
+
+    num = blocks(got.float() - want.float()).norm(dim=-1)
+    return float((num / blocks(want.float()).norm(dim=-1).clamp_min(1e-30)
+                  ).max())
+
+
+def _variant(dtype):
+    """The per-kernel counts of one launch: bf16 on the tensor cores,
+    f32 on the CUDA cores."""
+    bf16 = dtype == torch.bfloat16
+    return {"wgmma_bf16": int(bf16), "fma_f32": int(not bf16)}
+
+
+_SHAPES = [(1, 4, 4, 256, 64), (2, 8, 2, 256, 64), (1, 4, 1, 512, 128),
+           (1, 14, 2, 200, 64), (2, 4, 4, 130, 80), (1, 4, 2, 100, 96)]
+# (B, Hq, Hkv): GQA 1:1, 4:1, 7:1, 8:1, B = 2 in two of them
+_HEADS = [(2, 4, 4), (1, 8, 2), (1, 14, 2), (2, 8, 1)]
+# the tensor-core kernel's edges: every head dim, ragged S below, at and
+# above its 128-row tiles (S = 1 and 37 below one 64-row warpgroup),
+# every GQA ratio, q and k scaled by 8 in every other case (scores up to
+# several hundred, so the running max moves across kv tiles), and
+# S = 4096 at one head; v scaled too in test_..._large_v_on_card
+_EDGES = [(*_HEADS[i % 4], S, d, 8.0 if i % 2 else 1.0)
+          for d in (64, 80, 96, 128)
+          for i, S in enumerate((1, 37, 64, 100, 130, 200))] + \
+    [(1, 1, 1, 4096, d, 8.0) for d in (64, 80, 96, 128)]
+_CASES = [(*shape, 1.0, dtype) for shape in _SHAPES
+          for dtype in (torch.float32, torch.bfloat16)] + \
+    [(*edge, torch.bfloat16) for edge in _EDGES]
+
+
+@pytest.mark.parametrize("B,Hq,Hkv,S,d,scale,dtype", _CASES, ids=str)
 @pytest.mark.parametrize("causal", [True, False])
-@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
-                         ids=str)
-def test_flash_attention_kernel_equals_plain_on_card(B, Hq, Hkv, S, d,
-                                                     causal, dtype, card):
+def test_flash_attention_kernel_equals_plain_on_card(B, Hq, Hkv, S, d, scale,
+                                                     dtype, causal, card):
     rng = np.random.default_rng(0)
-    q = _normal(rng, (B, Hq, S, d), dtype, card)
-    k = _normal(rng, (B, Hkv, S, d), dtype, card)
+    q, k = (_normal(rng, (B, h, S, d), dtype, card) * scale
+            for h in (Hq, Hkv))
     v = _normal(rng, (B, Hkv, S, d), dtype, card)
     FA.reset_launches()
     out = flash_attention(q, k, v, causal=causal)
     assert FA.LAUNCHES == {"flash_attention_kernel": 1}
+    assert FA.VARIANT_LAUNCHES == _variant(dtype)
     torch.cuda.synchronize()
     want = attention_ref(q, k, v, causal=causal)
     assert out.dtype == dtype and out.shape == q.shape
     torch.testing.assert_close(out.float(), want.float(), **TOL[dtype])
+    assert _block_rel_rms(out, want) <= RMS_LIMIT[dtype]
+
+
+@pytest.mark.parametrize("B,Hq,Hkv,S,d", [
+    (1, 8, 2, 200, 96), (2, 4, 4, 130, 80), (1, 14, 2, 100, 64),
+    (2, 8, 1, 200, 128), (1, 1, 1, 4096, 128)], ids=str)
+@pytest.mark.parametrize("causal", [True, False])
+def test_flash_attention_bf16_large_v_on_card(B, Hq, Hkv, S, d, causal,
+                                              card):
+    """q, k and v all scaled by 8.  The output is a weighted mean of v
+    rows, so the error of rounding P to bf16 before P.V grows with |v|,
+    and where a row's v values cancel it can pass the absolute part of
+    the elementwise bf16 tolerance: the kernel is held instead to the
+    relative limit per row block and to twice the error of SDPA's flash
+    backend, which rounds P to bf16 in the same way."""
+    rng = np.random.default_rng(0)
+    q, k, v = (_normal(rng, (B, h, S, d), torch.bfloat16, card) * 8.0
+               for h in (Hq, Hkv, Hkv))
+    FA.reset_launches()
+    out = flash_attention(q, k, v, causal=causal)
+    assert FA.VARIANT_LAUNCHES == _variant(torch.bfloat16)
+    want = attention_ref(q, k, v, causal=causal)
+    G = Hq // Hkv
+    with torch.nn.attention.sdpa_kernel(
+            torch.nn.attention.SDPBackend.FLASH_ATTENTION):
+        lib = torch.nn.functional.scaled_dot_product_attention(
+            q, k.repeat_interleave(G, 1), v.repeat_interleave(G, 1),
+            is_causal=causal)
+    assert _block_rel_rms(out, want) <= RMS_LIMIT[torch.bfloat16]
+    err = float((out.float() - want.float()).abs().max())
+    lib_err = float((lib.float() - want.float()).abs().max())
+    assert err <= 2 * lib_err, (err, lib_err)
 
 
 @pytest.mark.parametrize("B,S,Di,N", [
@@ -198,10 +272,15 @@ def test_rejected_shapes_raise_on_card_without_fallback(card):
     with pytest.raises(ValueError, match="several devices"):
         x = _normal(rng, (1, 2, 64, 64), torch.float32, card)
         flash_attention(x, x.cpu(), x)
+    with pytest.raises(ValueError, match="16-byte aligned"):
+        buf = _normal(rng, (2 * 64 * 64 + 1,), torch.bfloat16, card)
+        x = buf[1:].view(1, 2, 64, 64)     # 2 bytes past an aligned start
+        flash_attention(x, x, x)
     x = _normal(rng, (1, 16, 32), torch.float32, card)
     A = _normal(rng, (32, 64), torch.float32, card)
     Bm = _normal(rng, (1, 16, 64), torch.float32, card)
     with pytest.raises(ValueError, match="power of two"):
         selective_scan(x, x, A, Bm, Bm)
     assert FA.LAUNCHES == {"flash_attention_kernel": 0}
+    assert FA.VARIANT_LAUNCHES == {"wgmma_bf16": 0, "fma_f32": 0}
     assert SS.LAUNCHES == {"selective_scan_kernel": 0}

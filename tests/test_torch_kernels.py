@@ -7,6 +7,8 @@ shape, dtype and causal case of ``tests/test_kernels.py`` is a case here,
 at that file's tolerances: attention f32 1e-5, bf16 2e-2; scan f32 2e-4,
 bf16 5e-2 (bf16 outputs round at other places in the two frameworks).
 """
+import math
+
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -80,6 +82,49 @@ def test_flash_attention_matches_jax_kernel(B, Hq, Hkv, S, d, causal, dtype):
     got = flash_attention(qt, kt, vt, causal=causal)
     assert got.dtype == qt.dtype and got.shape == qt.shape
     np.testing.assert_allclose(_f32(got), _f32(want), **_attn_tol(dtype))
+
+
+def _tensor_core_numerics(q, k, v, causal, block_k=128):
+    """The roundings of the bf16 tensor-core attention kernel, in plain
+    PyTorch: bf16 inputs, f32 Q.K^T (products of bf16 are exact in f32),
+    the scale applied after the product, an online softmax over tiles of
+    ``block_k`` keys with masked scores at -1e30, l summed from the f32 P,
+    and P rounded to bf16 before P.V."""
+    B, Hq, S, d = q.shape
+    G = Hq // k.shape[1]
+    qf = q.float()
+    kf, vf = (t.float().repeat_interleave(G, dim=1) for t in (k, v))
+    m = torch.full((B, Hq, S, 1), -1e30)
+    l = torch.zeros((B, Hq, S, 1))
+    acc = torch.zeros((B, Hq, S, d))
+    rows = torch.arange(S)[:, None]
+    for k0 in range(0, S, block_k):
+        kt, vt = kf[:, :, k0:k0 + block_k], vf[:, :, k0:k0 + block_k]
+        s = (qf @ kt.transpose(-1, -2)) / math.sqrt(d)
+        if causal:
+            keys = torch.arange(k0, k0 + kt.shape[2])[None, :]
+            s = s.masked_fill(keys > rows, -1e30)
+        m_new = torch.maximum(m, s.amax(-1, keepdim=True))
+        p = torch.exp(s - m_new)
+        alpha = torch.exp(m - m_new)
+        l = l * alpha + p.sum(-1, keepdim=True)
+        acc = acc * alpha + p.bfloat16().float() @ vt
+        m = m_new
+    return (acc / l.clamp_min(1e-30)).to(q.dtype)
+
+
+@pytest.mark.parametrize("d", [64, 80])
+@pytest.mark.parametrize("causal", [True, False])
+def test_tensor_core_numerics_match_jax_kernel(d, causal):
+    """The bf16 kernel's rounding design, held against the JAX kernel
+    (f32 math from bf16 inputs) within the bf16 tolerance."""
+    (qj, qt), (kj, kt), (vj, vt) = _attn_inputs(1, 4, 2, 256, d, "bfloat16",
+                                                seed=4)
+    want = jax_flash(qj, kj, vj, causal=causal, block_q=128, block_k=128,
+                     interpret=True)
+    got = _tensor_core_numerics(qt, kt, vt, causal)
+    assert got.dtype == torch.bfloat16 and got.shape == qt.shape
+    np.testing.assert_allclose(_f32(got), _f32(want), **_attn_tol("bfloat16"))
 
 
 @pytest.mark.parametrize("block_q,block_k", [(128, 128), (128, 256)])
