@@ -27,8 +27,19 @@ CUDA-core one, and each attention case is timed warm and with the L2
 made cold before every call.  Each path is driven with every launch
 count at 0 just before it and read just after.  It prints one JSON line per phase, then the
 ``kernels`` line (every kernel: launches on its path, error, times,
-bound), the card's name and power limit, and last ``{"ok": true,
-"device": {...}}``.  Any failure raises, and the exit code is not 0;
+bound; f32 attention has an entry of its own), the card's name and
+power limit, and last ``{"ok": true, "device": {...}}``.  The
+``kernel_times`` line gives each scheduling kernel at exp7 the CUDA-event
+time around back-to-back wrapper calls (``ms``, as every earlier run
+timed it), its device time with the host's enqueue hidden
+(``device_ms``), ``us_per_decision`` (plan: ms * 1000 / (A * W * B),
+spread over the blocks running in parallel; wave: ms * 1000 / B), for
+the plan ``us_per_decision_in_series`` (ms * 1000 / (W * B), a block's
+chain of decisions) and for the wave ``device_us_per_decision``
+(device_ms * 1000 / B), the plain version's time, the bytes it must
+move and its bound; ``main_exp7`` adds the plan
+kernel's output bytes and ``torch.cuda.max_memory_allocated()`` over the
+submit.  Any failure raises, and the exit code is not 0;
 without a CUDA device it exits with 2 before printing any result.
 """
 import json
@@ -160,6 +171,33 @@ def event_ms(fn, reps: int) -> float:
     b.record()
     torch.cuda.synchronize()
     return a.elapsed_time(b) / reps
+
+
+def device_ms(fn, reps: int) -> float:
+    """CUDA-event ms per call of ``fn`` with the host's enqueue hidden:
+    a spin kernel holds the stream while the host enqueues all ``reps``
+    calls, so the events bracket the device's work alone, not the time
+    the wrapper spends on the host (which ``event_ms`` reads when it
+    exceeds the kernel's).  The spin is doubled until it outlasts the
+    enqueue; ``fn`` must not synchronise."""
+    fn()
+    torch.cuda.synchronize()
+    cycles = 1 << 22
+    for _ in range(12):
+        s, a, b = (torch.cuda.Event(enable_timing=True) for _ in range(3))
+        s.record()
+        torch.cuda._sleep(cycles)
+        a.record()
+        t0 = time.perf_counter()
+        for _ in range(reps):
+            fn()
+        enqueue_ms = (time.perf_counter() - t0) * 1e3
+        b.record()
+        torch.cuda.synchronize()
+        if s.elapsed_time(a) > enqueue_ms:
+            return a.elapsed_time(b) / reps
+        cycles *= 2
+    raise RuntimeError("the spin kernel never outlasted the enqueue")
 
 
 def bound(bytes_moved: int, ops: int, ops_per_s: float = FP64_OPS_PER_S):
@@ -470,6 +508,12 @@ def main() -> int:
                        for ln in lines), (name, lines)
             assert not any("Performance Loss" in ln for ln in lines), \
                 (name, lines)
+    # every instantiation of the scheduling kernels (one per hop count)
+    # spills nothing
+    sched_ptxas = ptxas_summary(built[0].log)
+    assert all(any(k in name for name in sched_ptxas)
+               for k in ("sched_plan_kernel", "sched_wave_kernel")) and all(
+        spill == 0 for _, spill in sched_ptxas.values()), sched_ptxas
     emit({"phase": "device", "name": torch.cuda.get_device_name(0),
           "torch": torch.__version__, "cuda": torch.version.cuda,
           "sms": torch.cuda.get_device_properties(0).multi_processor_count,
@@ -503,9 +547,14 @@ def main() -> int:
     Kp = pargs["pred"].shape[2]
     W, B = pargs["task"].shape
     A = len(grid)
+    # ms: CUDA events around back-to-back wrapper calls (host-bound where
+    # the wrapper outlasts the kernel); device_ms: the device's time, the
+    # host's enqueue hidden
     k1_ms = event_ms(lambda: K.sched_wave(**wargs), 50)
+    k1_device_ms = device_ms(lambda: K.sched_wave(**wargs), 50)
     k1_plain_ms = event_ms(lambda: K.wave_plain(**wargs), 3)
     k2_ms = event_ms(lambda: K.sched_plan(**pargs), 5)
+    k2_device_ms = device_ms(lambda: K.sched_plan(**pargs), 5)
     k2_plain_ms = event_ms(lambda: K.plan_plain(**pargs), 1)
     k1_bytes = table_bytes(T, wargs["task"], wargs["pedge"], wargs["psrc"]) \
         + nbytes(tuple(wargs[k] for k in ("task", "real", "exitf", "paft",
@@ -523,11 +572,17 @@ def main() -> int:
                  + pouts[0].tensors() + pouts[1] + pouts[2:])
     k1_bound, k1_by = bound(k1_bytes, decision_ops(wb, P, Kp, R, H))
     k2_bound, k2_by = bound(k2_bytes, decision_ops(A * W * B, P, Kp, R, H))
-    emit({"phase": "kernel_times", "exp7_wave": {
-        "B": wb, "ms": k1_ms, "plain_ms": k1_plain_ms, "bytes": k1_bytes,
-        "bound_ms": k1_bound}, "exp7_plan": {
-        "A": A, "W": W, "B": B, "ms": k2_ms, "plain_ms": k2_plain_ms,
-        "bytes": k2_bytes, "bound_ms": k2_bound}})
+    emit({"phase": "kernel_times", "card": smi, "exp7_wave": {
+        "B": wb, "ms": k1_ms, "device_ms": k1_device_ms,
+        "us_per_decision": k1_ms * 1e3 / wb,
+        "device_us_per_decision": k1_device_ms * 1e3 / wb,
+        "plain_ms": k1_plain_ms,
+        "bytes": k1_bytes, "bound_ms": k1_bound}, "exp7_plan": {
+        "A": A, "W": W, "B": B, "ms": k2_ms, "device_ms": k2_device_ms,
+        "us_per_decision": k2_ms * 1e3 / (A * W * B),
+        "us_per_decision_in_series": k2_ms * 1e3 / (W * B),
+        "plain_ms": k2_plain_ms, "bytes": k2_bytes,
+        "output_bytes": nbytes(pouts[0].tensors()), "bound_ms": k2_bound}})
 
     # ---- 3. main path, paper instance.  Every path is driven with the
     # launch counts set to 0 just before it and read just after it.
@@ -566,9 +621,12 @@ def main() -> int:
 
     # ---- 4. main path, exp7 deployment: 301 alphas in one launch
     sched7 = Scheduler(tg7)
+    torch.cuda.reset_peak_memory_stats()
+    base_bytes = torch.cuda.memory_allocated()
     t0 = time.perf_counter()
     plan7 = drive("exp7_submit", lambda: sched7.submit(g7, EXP7_POLICY))
     submit_s = time.perf_counter() - t0
+    peak_bytes = torch.cuda.max_memory_allocated()
     sess = sched7._sessions[id(g7)]       # the session's compiled state
     be7 = sess.inst.backend_instance("cuda")
     timing = dict(be7.last_timing)
@@ -611,6 +669,9 @@ def main() -> int:
           "makespan": plan7.makespan, "best_alpha": plan7.best_alpha,
           "submit_s": submit_s, "timing_s": timing,
           "plan_kernel_event_ms": k2_ms,
+          "plan_kernel_output_bytes": nbytes(pouts[0].tensors()),
+          "max_memory_allocated_bytes": peak_bytes,
+          "memory_allocated_before_bytes": base_bytes,
           "roundtrips": be7.n_roundtrips, "state_uploads":
           be7.n_state_uploads, "scalar_sweep_s": scalar_s,
           "per_wave_schedule_s": per_wave_s,
@@ -735,6 +796,7 @@ def main() -> int:
         assert counts == {**dict.fromkeys(counts, 0), **own}, (name, counts)
     src = "src/repro_torch/core/backends/csrc/sched_kernels.cu"
     a0, s0 = next(iter(attn)), next(iter(scan))
+    a32 = next(n for n, c in attn.items() if c["variant"] == "fma_f32")
     emit({"kernels": [
         {"name": "sched_wave_kernel", "route": "cuda", "source": src,
          "replaces": "src/repro/core/backends/pallas.py:199",
@@ -762,6 +824,15 @@ def main() -> int:
          "max_abs_err": max(c["max_abs_err"] for c in attn.values()),
          **{k: attn[a0][k] for k in ("ms", "plain_ms", "bound_ms",
                                      "bound_by", "library_ms")}},
+        {"name": "flash_attention_kernel/fma_f32", "route": "cuda",
+         "source": "src/repro_torch/kernels/csrc/flash_attention.cu",
+         "replaces": "src/repro/kernels/flash_attention/kernel.py:30",
+         "path": "kernels.flash_attention.ops.flash_attention, " + a32,
+         "case": a32,
+         "launches": paths["attention"]["flash_attention_kernel/fma_f32"],
+         **{k: attn[a32][k] for k in ("max_abs_err", "ms", "plain_ms",
+                                      "bound_ms", "bound_by",
+                                      "library_ms")}},
         {"name": "selective_scan_kernel", "route": "cuda",
          "source": "src/repro_torch/kernels/csrc/ssm_scan.cu",
          "replaces": "src/repro/kernels/ssm_scan/kernel.py:27",

@@ -13,7 +13,10 @@ routine.
 
 Each kernel has a **plain PyTorch version** here (:func:`wave_plain`,
 :func:`plan_plain`) with the same algebra, one torch op per IEEE
-rounding step, over an explicit ``(A,)`` alpha axis.  The wrappers
+rounding step, over an explicit ``(A,)`` alpha axis.  Both return the
+kernels' outputs: the A / B coefficients of every candidate lane (the
+crossing bounds read them) and everything else of the winner lane
+only (:class:`PlanOut`).  The wrappers
 (:func:`sched_wave`, :func:`sched_plan`) take the plain version only for
 tensors that lie on the CPU; for CUDA tensors they launch the kernel or
 raise.  :data:`LAUNCHES` counts kernel launches per kernel.
@@ -26,7 +29,10 @@ divisor would let PyTorch multiply by its reciprocal on the card).
 
 Where the reference buckets shapes to powers of two, tile-pads them and
 keeps a bounded cache of compiled kernels, these kernels take their
-sizes at run time: W, B, K and A are passed exactly.  The library is
+sizes at run time: W, B, K and A are passed exactly.  The host picks
+each launch's shared-memory layout (:func:`launch_layout`): how many
+slots a wave stages at once, and whether the carried AFT / placement
+rows live on chip.  The library is
 built by :func:`repro_torch._nvcc.build` from the package's sources at
 first use into ``build/repro_torch/`` of the checkout, keyed by a hash
 of the source and flags, and loaded with ``ctypes``.
@@ -59,10 +65,10 @@ from ..faults import WaveTimeoutError
 from .base import CandidateEvaluator, Decision
 from .layout import src_layout, stacked_edge_ct, stacked_src_tensors
 
-__all__ = ["CudaBackend", "LAUNCHES", "PlanOut", "RouteTables",
-           "build_library", "check_device", "crossings", "plan_plain",
-           "reset_launches",
-           "sched_plan", "sched_wave", "wave_plain"]
+__all__ = ["CudaBackend", "LAUNCHES", "Layout", "PlanOut", "ROWS_SMEM_MAX",
+           "RouteTables", "build_library", "check_device", "crossings",
+           "launch_layout", "plan_plain", "reset_launches", "sched_plan",
+           "sched_wave", "wave_plain"]
 
 _INF = float("inf")
 _NEG_INF = float("-inf")
@@ -71,9 +77,16 @@ SOURCE = Path(__file__).resolve().parent / "csrc" / "sched_kernels.cu"
 # bit-exact decisions: no multiply-add is ever fused
 NVCC_FLAGS = _nvcc.BASE_FLAGS + ("--fmad=false",)
 
-# Hopper limits the wrappers check before a launch
-_MAX_THREADS = 1024
+# limits the wrappers check before a launch: candidate lanes (one
+# thread per processor up to SCHED_MAX_THREADS = 512, two past it) and
+# Hopper's shared memory per block
+_MAX_LANES = 1024
 _MAX_SMEM = 232448
+# the plan kernel keeps the carried AFT / placement rows in shared memory
+# while the block's total stays within 48 KB, the size a block takes
+# without opting in: four such blocks share an SM, so a grid of up to
+# 4 x 132 alphas (the exp7 grid has 301) stays resident in one round
+ROWS_SMEM_MAX = 48 * 1024
 
 # kernel launches per kernel (plain-version calls are not counted)
 LAUNCHES: Dict[str, int] = {"sched_wave_kernel": 0, "sched_plan_kernel": 0}
@@ -105,7 +118,6 @@ def check_device(device) -> torch.device:
 @dataclasses.dataclass
 class _Library:
     built: _nvcc.Library
-    hmax: int
 
     @property
     def lib(self) -> ctypes.CDLL:
@@ -129,17 +141,15 @@ def build_library() -> _Library:
         return _LIB
     built = _nvcc.build("sched_kernels", [SOURCE], NVCC_FLAGS)
     lib = built.lib
-    lib.sched_smem.argtypes = [_I, _I, _I]
+    lib.sched_smem.argtypes = [_I] * 7
     lib.sched_smem.restype = ctypes.c_size_t
-    lib.sched_hmax.argtypes = []
-    lib.sched_hmax.restype = _I
     lib.sched_wave_launch.argtypes = (
-        [_P] * 12 + [_D, _D] + [_P] * 13 + [_I] * 6 + [_P])
+        [_P] * 12 + [_D, _D] + [_P] * 18 + [_I] * 7 + [_P])
     lib.sched_wave_launch.restype = _I
     lib.sched_plan_launch.argtypes = (
-        [_P] * 13 + [_D] + [_P] * 22 + [_I] * 10 + [_P])
+        [_P] * 13 + [_D] + [_P] * 22 + [_I] * 12 + [_P])
     lib.sched_plan_launch.restype = _I
-    _LIB = _Library(built, int(lib.sched_hmax()))
+    _LIB = _Library(built)
     return _LIB
 
 
@@ -183,16 +193,17 @@ class RouteTables:
 @dataclasses.dataclass
 class PlanOut:
     """Per-decision outputs of either kernel, leading dims ``(...)`` =
-    ``(B,)`` for a wave or ``(A, W, B)`` for a plan."""
+    ``(B,)`` for a wave or ``(A, W, B)`` for a plan: the winner lane's,
+    and the coefficients of every lane."""
 
     win: torch.Tensor       # (...) int32 winner lane
-    est: torch.Tensor       # (..., P)
-    eft: torch.Tensor       # (..., P)
+    est: torch.Tensor       # (...)
+    eft: torch.Tensor       # (...)
     ca: torch.Tensor        # (..., P)  A_p = EFT * LDET
     cb: torch.Tensor        # (..., P)  B_p = A_p * loads/period
-    lst: torch.Tensor       # (..., K, H, P) selected-route hop LSTs
-    lft: torch.Tensor       # (..., K, H, P) selected-route hop LFTs
-    route: torch.Tensor     # (..., K, P) int32 selected route
+    lst: torch.Tensor       # (..., K, H) selected-route hop LSTs
+    lft: torch.Tensor       # (..., K, H) selected-route hop LFTs
+    route: torch.Tensor     # (..., K) int32 selected route
 
     def tensors(self) -> Tuple[torch.Tensor, ...]:
         return (self.win, self.est, self.eft, self.ca, self.cb, self.lst,
@@ -213,18 +224,41 @@ def _check(t: torch.Tensor, dtype: torch.dtype, shape: Tuple[int, ...],
                          f"contiguous={t.is_contiguous()}")
 
 
-def _check_launch(lib: _Library, T: RouteTables, K: int) -> None:
-    P, L = T.P, T.n_links
-    if T.H > lib.hmax:
-        raise ValueError(f"routes of {T.H} hops exceed the kernels' "
-                         f"{lib.hmax}")
-    if P > _MAX_THREADS:
-        raise ValueError(f"{P} processors exceed one block's "
-                         f"{_MAX_THREADS} threads")
-    smem = int(lib.lib.sched_smem(P, L, K))
-    if smem > _MAX_SMEM:
-        raise ValueError(f"{smem} bytes of shared memory exceed Hopper's "
-                         f"{_MAX_SMEM} per block")
+@dataclasses.dataclass(frozen=True)
+class Layout:
+    """One launch's shared-memory layout (``sched_layout`` in the
+    source): ``chunk`` slots of a wave staged at once, the carried AFT /
+    placement rows on chip (``rows`` = n) or not (0), and the block's
+    bytes."""
+
+    chunk: int
+    rows: int
+    smem: int
+
+
+def launch_layout(T: RouteTables, K: int, B: int, n: int = 0) -> Layout:
+    """The layout of a launch of ``B``-slot waves with ``K`` predecessor
+    slots (``n`` carried rows for the plan kernel, 0 for the wave
+    kernel): the decision state and scratch, as large a chunk of staged
+    slots as fits (up to ``B``), and the carried rows if the total stays
+    within :data:`ROWS_SMEM_MAX`.  Raises when one slot does not fit or
+    ``P`` exceeds the kernels' 1024 candidate lanes."""
+    P, L, R, H = T.P, T.n_links, T.R, T.H
+    if P > _MAX_LANES:
+        raise ValueError(f"{P} processors exceed the kernels' "
+                         f"{_MAX_LANES} candidate lanes")
+    lib = build_library()
+
+    def smem(chunk: int, rows: int) -> int:
+        return int(lib.lib.sched_smem(P, L, K, R, H, chunk, rows))
+
+    if smem(1, 0) > _MAX_SMEM:
+        raise ValueError(f"{smem(1, 0)} bytes of shared memory exceed "
+                         f"Hopper's {_MAX_SMEM} per block")
+    base = smem(0, 0)                  # the layout is affine in the chunk
+    chunk = min(B, (_MAX_SMEM - base) // (smem(1, 0) - base))
+    rows = n if n and smem(chunk, n) <= ROWS_SMEM_MAX else 0
+    return Layout(chunk, rows, smem(chunk, rows))
 
 
 def _check_tables(T: RouteTables) -> None:
@@ -248,7 +282,10 @@ def _decide_plain(T: RouteTables, j: int, is_exit: bool, is_real: bool,
                   ) -> Tuple[Tuple[torch.Tensor, ...], State]:
     """One decision for every alpha: the algebra of the kernels'
     ``decide`` over an ``(A,)`` axis (sorted predecessor triples
-    ``s_*`` ``(A, K)``, ``alpha`` ``(A, 1)``, ``period`` ``(A, P)``)."""
+    ``s_*`` ``(A, K)``, ``alpha`` ``(A, 1)``, ``period`` ``(A, P)``).
+    Returns every lane's values (``est``/``eft`` ``(A, P)``,
+    ``lst``/``lft`` ``(A, K, H, P)``, ``route`` ``(A, K, P)``);
+    :func:`_at_winner` reduces them to the kernels' outputs."""
     lf, pf, loads, lop, bp = state
     A, L = lf.shape
     P, R, H = T.P, T.R, T.H
@@ -336,6 +373,20 @@ def _decide_plain(T: RouteTables, j: int, is_exit: bool, is_real: bool,
     return outs, (lf, pf, loads, lop, bp)
 
 
+def _at_winner(outs: Tuple[torch.Tensor, ...]) -> Tuple[torch.Tensor, ...]:
+    """A decision's outputs as the kernels write them: ``est``, ``eft``,
+    ``lst``, ``lft`` and ``route`` taken at the winner lane, ``ca`` and
+    ``cb`` for every lane."""
+    w, est, eft, ca, cb, lst, lft, route = outs
+    wl = w.long()
+
+    def at(x: torch.Tensor) -> torch.Tensor:
+        idx = wl.view(-1, *([1] * (x.dim() - 1)))
+        return x.gather(-1, idx.expand(*x.shape[:-1], 1))[..., 0]
+
+    return (w, at(est), at(eft), ca, cb, at(lst), at(lft), at(route))
+
+
 def wave_plain(T: RouteTables, task: torch.Tensor, real: torch.Tensor,
                exitf: torch.Tensor, paft: torch.Tensor, psrc: torch.Tensor,
                pedge: torch.Tensor, alpha: float, period: float,
@@ -355,7 +406,7 @@ def wave_plain(T: RouteTables, task: torch.Tensor, real: torch.Tensor,
         outs, st = _decide_plain(T, j, bool(x), bool(r), paft[b:b + 1],
                                  psrc[b:b + 1], pedge[b:b + 1], alpha_t,
                                  period_t, st)
-        cols.append(outs)
+        cols.append(_at_winner(outs))
     stacked = [torch.cat(c) for c in zip(*cols)]
     return PlanOut(*stacked), tuple(s[0] for s in st)
 
@@ -402,11 +453,11 @@ def plan_plain(T: RouteTables, task: torch.Tensor, real: torch.Tensor,
             outs, st = _decide_plain(T, j, bool(exit_l[wv][b]), is_real,
                                      s_aft, s_src, s_edge, alpha_t, period_t,
                                      st)
+            outs = _at_winner(outs)
             for dst, src in zip(out.tensors(), outs):
                 dst[:, wv, b] = src
             if is_real:
-                w = outs[0].long()
-                aft[:, j] = outs[2].gather(1, w[:, None])[:, 0]
+                aft[:, j] = outs[2]
                 proc[:, j] = outs[0]
     return out, st, aft, proc
 
@@ -416,13 +467,12 @@ def _empty_out(lead: Tuple[int, ...], K: int, T: RouteTables,
     P, H = T.P, T.H
     f = dict(dtype=torch.float64, device=dev)
     i = dict(dtype=torch.int32, device=dev)
-    return PlanOut(torch.empty(lead, **i), torch.empty(lead + (P,), **f),
+    return PlanOut(torch.empty(lead, **i), torch.empty(lead, **f),
+                   torch.empty(lead, **f), torch.empty(lead + (P,), **f),
                    torch.empty(lead + (P,), **f),
-                   torch.empty(lead + (P,), **f),
-                   torch.empty(lead + (P,), **f),
-                   torch.empty(lead + (K, H, P), **f),
-                   torch.empty(lead + (K, H, P), **f),
-                   torch.empty(lead + (K, P), **i))
+                   torch.empty(lead + (K, H), **f),
+                   torch.empty(lead + (K, H), **f),
+                   torch.empty(lead + (K,), **i))
 
 
 # ----------------------------------------------------------------------
@@ -433,7 +483,8 @@ def sched_wave(T: RouteTables, task: torch.Tensor, real: torch.Tensor,
                pedge: torch.Tensor, alpha: float, period: float,
                state: State) -> Tuple[PlanOut, State]:
     """One wave of decisions (``sched_wave_kernel``); returns the
-    decisions and the state after the wave's commits."""
+    decisions and the state after the wave's commits (new tensors:
+    ``state`` is left as it was)."""
     if paft.shape[0] == 0:
         raise ValueError("a wave needs at least one decision slot")
     tensors = (*T.tensors(), task, real, exitf, paft, psrc, pedge, *state)
@@ -454,8 +505,8 @@ def sched_wave(T: RouteTables, task: torch.Tensor, real: torch.Tensor,
         _check(t, dt, shp, what)
     for s in state[1:]:
         _check(s, torch.float64, (P,), "processor state")
-    _check_launch(lib, T, K)
-    st = tuple(s.clone() for s in state)
+    lay = launch_layout(T, K, B)
+    st = tuple(torch.empty_like(s) for s in state)
     out = _empty_out((B,), K, T, paft.device)
     with torch.cuda.device(paft.device):
         stream = torch.cuda.current_stream(paft.device).cuda_stream
@@ -463,8 +514,8 @@ def sched_wave(T: RouteTables, task: torch.Tensor, real: torch.Tensor,
             *(t.data_ptr() for t in T.tensors()),
             *(t.data_ptr() for t in (task, real, exitf, paft, psrc, pedge)),
             float(alpha), float(period),
-            *(t.data_ptr() for t in st + out.tensors()),
-            B, K, T.R, T.H, P, L, stream)
+            *(t.data_ptr() for t in state + st + out.tensors()),
+            B, K, T.R, T.H, P, L, lay.chunk, stream)
     _raise_on(rc, "sched_wave_kernel")
     LAUNCHES["sched_wave_kernel"] += 1
     return out, st
@@ -506,7 +557,7 @@ def sched_plan(T: RouteTables, task: torch.Tensor, real: torch.Tensor,
         _check(s, torch.float64, (P,), "processor state")
     if T.comp.shape[0] != n:
         raise ValueError(f"aft0 has {n} tasks, comp {T.comp.shape[0]}")
-    _check_launch(lib, T, K)
+    lay = launch_layout(T, K, B, n)
     dev = alphas.device
     f = dict(dtype=torch.float64, device=dev)
     out = _empty_out((A, W, B), K, T, dev)
@@ -523,7 +574,8 @@ def sched_plan(T: RouteTables, task: torch.Tensor, real: torch.Tensor,
             float(period),
             *(t.data_ptr() for t in state + (aft0, proc0, aft, proc)
               + out.tensors() + st),
-            A, W, B, K, T.R, T.H, P, L, n, T.E, stream)
+            A, W, B, K, T.R, T.H, P, L, n, T.E, lay.chunk, lay.rows,
+            stream)
     _raise_on(rc, "sched_plan_kernel")
     LAUNCHES["sched_plan_kernel"] += 1
     return out, st, aft, proc
@@ -552,21 +604,10 @@ def crossings(win: np.ndarray, ca: np.ndarray, cb: np.ndarray,
     return cand.min(-1, initial=_INF)
 
 
-def _winner_lanes(out: PlanOut) -> Tuple[np.ndarray, ...]:
-    """Fetch the decisions, reduced on the device to the winner lane
-    where only the winner is decoded: ``(win, est, eft, ca, cb, lst,
-    lft, route)`` with ``est``/``eft`` ``(...)``, ``lst``/``lft``
-    ``(..., K, H)`` and ``route`` ``(..., K)``."""
-    win = out.win.long()
-    est = out.est.gather(-1, win[..., None])[..., 0]
-    eft = out.eft.gather(-1, win[..., None])[..., 0]
-    wl = win[..., None, None, None].expand(*out.lst.shape[:-1], 1)
-    lst = out.lst.gather(-1, wl)[..., 0]
-    lft = out.lft.gather(-1, wl)[..., 0]
-    wr = win[..., None, None].expand(*out.route.shape[:-1], 1)
-    route = out.route.gather(-1, wr)[..., 0]
-    return tuple(t.cpu().numpy() for t in (out.win, est, eft, out.ca, out.cb,
-                                           lst, lft, route))
+def _fetch(out: PlanOut) -> Tuple[np.ndarray, ...]:
+    """Fetch the decisions to the host: ``(win, est, eft, ca, cb, lst,
+    lft, route)`` as the kernels wrote them."""
+    return tuple(t.cpu().numpy() for t in out.tensors())
 
 
 # ----------------------------------------------------------------------
@@ -714,7 +755,7 @@ class CudaBackend(CandidateEvaluator):
         self.n_launches += 1
         if commit:
             self._state = state        # the carry stays on the device
-        fetched = _winner_lanes(out)
+        fetched = _fetch(out)
         self.n_roundtrips += 1
         bound = crossings(fetched[0], fetched[3], fetched[4], self.alpha)
         win, est, eft, ca, cb, lst, lft, route = (x.tolist() for x in fetched)
@@ -792,7 +833,7 @@ class CudaBackend(CandidateEvaluator):
         if self.device.type == "cuda":
             torch.cuda.synchronize(self.device)
         t2 = time.perf_counter()
-        fetched = _winner_lanes(out)
+        fetched = _fetch(out)
         self.n_roundtrips += 1
         t3 = time.perf_counter()
         self.last_timing = {"stage_s": t1 - t0, "kernel_s": t2 - t1,

@@ -47,12 +47,19 @@ def _make(kind, arg):
         return _case(arg)
     if kind == "wide":
         return _wide(arg, 3)
+    if kind == "ties":
+        # equal rates and link speeds: lanes tie on value and EFT, and
+        # the first-index rule of the argmin decides
+        tg = ref.fully_switched_topology(8, rates=[1.0] * 8,
+                                         link_speeds=[1.0] * 8)
+        return ref.random_spg(24, np.random.default_rng(arg), ccr=1.0,
+                              tg=tg, max_in=3, max_out=6), tg
     tg = _link_reuse_topology(arg)
     return ref.random_spg(10, np.random.default_rng(0), ccr=1.0, tg=tg), tg
 
 
 CASES = ([("case", s) for s in range(0, 200, 29)] +
-         [("wide", 8), ("wide", 16), ("reuse", 4)])
+         [("wide", 8), ("wide", 16), ("reuse", 4), ("ties", 0)])
 
 
 def _setup(kind, arg):
@@ -84,7 +91,8 @@ def test_plan_path_matches_pallas_f64_and_scalar(kind, arg):
 
 
 @pytest.mark.parametrize("kind,arg", [("case", 0), ("case", 29),
-                                      ("wide", 8), ("reuse", 4)], ids=str)
+                                      ("wide", 8), ("reuse", 4),
+                                      ("ties", 0)], ids=str)
 def test_wave_path_matches_pallas_f64(kind, arg, monkeypatch):
     """Per-wave path: one plain ``wave_plain`` dispatch per wave against
     the reference's per-wave Pallas kernel (``REPRO_PALLAS_SCAN=0``)."""
@@ -100,7 +108,8 @@ def test_wave_path_matches_pallas_f64(kind, arg, monkeypatch):
     assert ri.backend_instance("pallas").n_launches == n_waves
 
 
-@pytest.mark.parametrize("kind,arg", [("case", 58), ("wide", 16)], ids=str)
+@pytest.mark.parametrize("kind,arg", [("case", 58), ("wide", 16),
+                                      ("ties", 0)], ids=str)
 def test_fused_sweep_matches_pallas_f64(kind, arg):
     """The fused sweep: every alpha in one dispatch, per-alpha traces
     equal to the reference's vmapped scan."""
@@ -152,6 +161,72 @@ def test_scheduler_plans_match_pallas_f64():
             assert pr.holes == pp.holes
 
 
+def _recording(monkeypatch):
+    """Record every lane's values of each ``_decide_plain`` call."""
+    calls = []
+    decide = K._decide_plain
+
+    def record(*args):
+        outs, state = decide(*args)
+        calls.append(outs)
+        return outs, state
+
+    monkeypatch.setattr(K, "_decide_plain", record)
+    return calls
+
+
+def _assert_winner_rows(out, lanes, lead):
+    """``out`` (leading dims ``lead`` + the decision) holds the winner
+    lane of the full-lane rows ``lanes`` of one decision: est / eft /
+    lst / lft / route gathered at win, ca / cb every lane's."""
+    w, est, eft, ca, cb, lst, lft, route = lanes
+    ar = torch.arange(w.shape[0])
+    wl = w.long()
+    got = [x[lead] for x in out.tensors()]
+    for g, want in zip(got, (w, est[ar, wl], eft[ar, wl], ca, cb,
+                             lst[ar, :, :, wl], lft[ar, :, :, wl],
+                             route[ar, :, wl])):
+        assert g.shape == want.shape and g.dtype == want.dtype
+        assert torch.equal(g, want)
+
+
+def test_plan_plain_writes_winner_lanes(monkeypatch):
+    """``plan_plain`` returns the kernels' winner-lane shapes, equal to
+    the full-lane rows of each decision gathered at its winner."""
+    _, pi, q = _setup("ties", 0)
+    be = pi.backend_instance("cuda")
+    be.start(0.0, pi.default_period, True)
+    waves = port.plan_waves(q, pi._preds, port.DEFAULT_BATCH_MAX)
+    args = be.stage_plan(waves, [0.0, 0.4, 1.7])
+    calls = _recording(monkeypatch)
+    out = K.plan_plain(**args)[0]
+    A, W, B = 3, len(waves), max(len(w) for w in waves)
+    P, H, Kp = pi.P, be._H, be._K
+    assert [tuple(t.shape) for t in out.tensors()] == [
+        (A, W, B), (A, W, B), (A, W, B), (A, W, B, P), (A, W, B, P),
+        (A, W, B, Kp, H), (A, W, B, Kp, H), (A, W, B, Kp)]
+    assert len(calls) == W * B
+    for s, lanes in enumerate(calls):
+        _assert_winner_rows(out, lanes, (slice(None), s // B, s % B))
+
+
+def test_wave_plain_writes_winner_lanes(monkeypatch):
+    """``wave_plain`` likewise, wave by wave along a schedule."""
+    _, pi, q = _setup("ties", 0)
+    be = port.CudaBackend(pi, scan=False)
+    be.start(0.85, pi.default_period, True)
+    calls = _recording(monkeypatch)
+    for js in port.plan_waves(q, pi._preds, port.DEFAULT_BATCH_MAX):
+        args = be.stage_wave(js, True)
+        calls.clear()
+        out, _ = K.wave_plain(**args)
+        assert out.lst.shape == (len(js), be._K, be._H)
+        assert len(calls) == len(js)
+        for b, lanes in enumerate(calls):
+            _assert_winner_rows(out, lanes, (slice(b, b + 1),))
+        be.evaluate_batch(js)
+
+
 def test_wrappers_dispatch_on_device():
     """CPU tensors take the plain version and count no launch; tensors on
     several devices are refused."""
@@ -168,6 +243,21 @@ def test_wrappers_dispatch_on_device():
     assert K.LAUNCHES == {"sched_wave_kernel": 0, "sched_plan_kernel": 0}
     with pytest.raises(ValueError, match="several devices"):
         K._on_cuda([torch.zeros(1), torch.zeros(1, device="meta")])
+
+
+def test_launch_layout_refuses_more_than_1024_lanes():
+    """The kernels take up to 1024 processors (two lanes a thread past
+    512); more are refused before anything is built or launched."""
+    P = 1025
+    z = torch.zeros
+    T = K.RouteTables(lid=z((P + 1, 1, 1, P), dtype=torch.int32),
+                      valid=z((P + 1, 1, P), dtype=torch.int32),
+                      nhops=z((P + 1, 1, P), dtype=torch.int32),
+                      ct=z((1, P + 1, 1, 1, P), dtype=torch.float64),
+                      comp=z((1, P), dtype=torch.float64),
+                      ldet=z((1, P), dtype=torch.float64), n_links=1)
+    with pytest.raises(ValueError, match="1024 candidate lanes"):
+        K.launch_layout(T, 1, 1, 1)
 
 
 def test_vectorized_crossings_equal_scalar_crossing():

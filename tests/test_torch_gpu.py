@@ -36,6 +36,22 @@ def card():
     return torch.device("cuda")
 
 
+def _many_routes_topology(rng, P, n_links, R, H, exact=False):
+    """R routes of 1 to H hops (exactly H with ``exact``; links drawn with
+    repeats) between every pair."""
+    links = {f"l{i}": float(s)
+             for i, s in enumerate(rng.uniform(0.5, 3.0, size=n_links))}
+    routes = {}
+    for a in range(P):
+        for b in range(a + 1, P):
+            hops = [H] * R if exact else \
+                rng.integers(1, H + 1, size=R - 1).tolist() + [H]
+            routes[(a, b)] = [tuple(f"l{x}" for x in rng.integers(
+                0, n_links, size=h)) for h in hops]
+    return port.Topology([f"p{i}" for i in range(P)],
+                         rng.uniform(0.6, 1.2, size=P), links, routes)
+
+
 def _instance(kind, seed):
     """Corpus-style instances built with the port's own generators."""
     rng = np.random.default_rng(seed)
@@ -46,12 +62,49 @@ def _instance(kind, seed):
         g = port.random_spg(int(rng.integers(8, 31)), rng, tg=tg,
                             ccr=[0.1, 1.0, 10.0][(seed // 3) % 3])
         return g, tg
-    if kind == "wide":
-        P = 16
+    if kind == "ties":
+        # equal rates and link speeds: lanes tie on value and EFT, and
+        # the first-index rule of the argmin decides
+        tg = port.fully_switched_topology(8, rates=[1.0] * 8,
+                                          link_speeds=[1.0] * 8)
+        return port.random_spg(40, rng, ccr=1.0, tg=tg, max_in=3,
+                               max_out=6), tg
+    if kind in ("wide", "p40", "rows"):
+        # "p40": more lanes than one warp; "rows": seed tasks on 20 ECUs,
+        # whose staged wave and decision scratch take 45.1 KB, so the
+        # carried rows fit in ROWS_SMEM_MAX up to about 330 tasks
+        P = {"wide": 16, "p40": 40, "rows": 20}[kind]
         tg = port.fully_switched_topology(
             P, rates=rng.uniform(0.6, 1.2, size=P),
             link_speeds=rng.uniform(0.5, 3.0, size=P))
-        return port.random_spg(60, rng, ccr=1.0, tg=tg, max_in=3,
+        return port.random_spg(seed if kind == "rows" else 60, rng, ccr=1.0,
+                               tg=tg, max_in=3, max_out=6), tg
+    if kind in ("multi", "hops", "routes"):
+        # "multi": three routes of one or two hops (a route pick);
+        # "hops": two routes of exactly seed hops (the hop counts the
+        # walk is compiled for); "routes": four of up to eight hops on 32
+        # ECUs (the scratch path; a wave is staged a few slots at a time)
+        if kind == "hops":
+            tg = _many_routes_topology(rng, 8, 8, 2, seed, exact=True)
+        elif kind == "multi":
+            tg = _many_routes_topology(rng, 12, 10, 3, 2)
+        else:
+            tg = _many_routes_topology(rng, 32, 16, 4, 8)
+        n = {"multi": 60, "hops": 40, "routes": 80}[kind]
+        return port.random_spg(n, rng, ccr=1.0, tg=tg, max_in=3,
+                               max_out=6), tg
+    if kind == "bus":
+        # seed ECUs on one shared link; the rates repeat every 512 lanes
+        # and the fastest lie below P - 512, so that past 512 lanes (two
+        # a thread) a thread's second lane ties with its first and wins
+        # once the first is loaded
+        rates = rng.choice([0.6, 0.8, 1.0], size=512)
+        rates[rng.integers(0, 88, size=3)] = 1.2
+        tg = port.Topology([f"p{i}" for i in range(seed)],
+                           rates[np.arange(seed) % 512], {"l0": 1.5},
+                           {(a, b): [("l0",)] for a in range(seed)
+                            for b in range(a + 1, seed)})
+        return port.random_spg(40, rng, ccr=1.0, tg=tg, max_in=3,
                                max_out=6), tg
     P = 4                      # routes that visit one link twice
     tg = port.Topology([f"p{i}" for i in range(P)], np.ones(P),
@@ -62,7 +115,9 @@ def _instance(kind, seed):
 
 
 CASES = [("paper", 0), ("case", 0), ("case", 29), ("wide", 3),
-         ("reuse", 0)]
+         ("reuse", 0), ("ties", 0), ("p40", 1), ("rows", 100),
+         ("rows", 500), ("multi", 4), ("hops", 1), ("hops", 4),
+         ("routes", 2), ("bus", 512), ("bus", 600)]
 
 
 def _queue(g, tg):
@@ -110,6 +165,40 @@ def test_card_traces_equal_scalar(kind, seed, card):
         assert tr.records == trc.records == trw.records == tr_sw.records
         assert b == bc == bw == b_sw
         assert np.array_equal(s.finish, s_sw.finish)
+
+
+@pytest.mark.parametrize("kind,seed,chunked,rows", [
+    ("wide", 3, False, True), ("rows", 100, False, True),
+    ("rows", 500, False, False), ("routes", 2, True, False),
+    ("p40", 1, False, False)], ids=str)
+def test_cases_reach_each_launch_layout(kind, seed, chunked, rows, card):
+    """The cases above reach every branch of the kernels' shared-memory
+    layout: the carried AFT / placement rows on chip on one side of
+    ROWS_SMEM_MAX and in global memory on the other, a wave staged a few
+    slots at a time, and P > 32 (two warps a block)."""
+    g, tg = _instance(kind, seed)
+    r, q = _queue(g, tg)
+    inst = port.CompiledInstance(g, tg, rank=r, device=card)
+    be = port.CudaBackend(inst)
+    waves = port.plan_waves(q, inst._preds, port.DEFAULT_BATCH_MAX)
+    B = max(len(w) for w in waves)
+    lay = K.launch_layout(be.tables(), be._K, B, g.n)
+    assert (lay.chunk < B, lay.rows == g.n) == (chunked, rows), lay
+    assert lay.smem <= 232448
+    assert (inst.P > 32) == (kind == "p40")
+
+
+def test_second_lane_of_a_thread_wins_on_card(card):
+    """Past 512 processors a decision thread takes two lanes: at P = 600
+    some decisions go to a lane of 512 or more, a thread's second."""
+    g, tg = _instance("bus", 600)
+    r, q = _queue(g, tg)
+    inst = port.CompiledInstance(g, tg, rank=r, device=card)
+    be = port.CudaBackend(inst)
+    be.start(0.3, inst.default_period, True)
+    waves = port.plan_waves(q, inst._preds, port.DEFAULT_BATCH_MAX)
+    out = K.sched_plan(**be.stage_plan(waves, [0.0, 0.3, 1.7]))[0]
+    assert bool((out.win >= 512).any())
 
 
 def test_session_on_card_counts_one_launch(card):
