@@ -16,16 +16,19 @@ deployment (16 ECUs, 500 tasks, the 301-alpha HVLB_CC grid in one
 kernel launch) — and checks the results against the pinned paper
 numbers and the port's scalar reference.  It then drives the kernel
 entry points (``repro_torch.kernels.*.ops``) at published model widths
-— attention at qwen3-8b, qwen2-0.5b and hubert-xlarge width, the
-selective scan at falcon-mamba-7b width, S = 4096 — and holds each
+— attention at qwen3-8b, qwen2-0.5b and hubert-xlarge width (each in
+bf16 and in f32), the selective scan at falcon-mamba-7b width, S = 4096
+— and holds each
 output against the plain version on the card at the tolerances of
 ``tests/test_kernels.py``, with the plain versions in full f32 (TF32
 off); attention is also held to a relative RMS error per block of 64
 query rows, a limit that a control dropping one kv tile must exceed.
 bf16 attention must go to the tensor-core kernel and f32 to the
 CUDA-core one, and each attention case is timed warm and with the L2
-made cold before every call.  Each path is driven with every launch
-count at 0 just before it and read just after.  It prints one JSON line per phase, then the
+made cold before every call.  ptxas must report no spill in any
+instance of the scheduling, attention and scan kernels.  Each path is
+driven with every launch count at 0 just before it and read just after.
+It prints one JSON line per phase, then the
 ``kernels`` line (every kernel: launches on its path, error, times,
 bound; f32 attention has an entry of its own), the card's name and
 power limit, and last ``{"ok": true, "device": {...}}``.  The
@@ -338,9 +341,10 @@ def attention_cases(dev):
     """One layer's prefill at published widths: (name, q, k, v, causal)
     with inputs from numpy, seed 0.  qwen3-8b in bf16 (its dtype) and
     f32, qwen2-0.5b (7:1 GQA, d = 64), hubert-xlarge (full attention,
-    d = 80), and qwen3-8b in bf16 with q and k scaled by 8, so that the
-    softmax is peaked and each output is O(1); S = train_4k's sequence
-    length, B = 1."""
+    d = 80), qwen3-8b in bf16 with q and k scaled by 8, so that the
+    softmax is peaked and each output is O(1), and qwen2-0.5b and
+    hubert-xlarge in f32, so that the CUDA-core kernel runs at the head
+    dims of the configs; S = train_4k's sequence length, B = 1."""
     S = SHAPES["train_4k"].seq_len
     rng = np.random.default_rng(0)
     cases = []
@@ -348,7 +352,9 @@ def attention_cases(dev):
                                ("qwen3-8b", torch.float32, 1.0),
                                ("qwen2-0.5b", torch.bfloat16, 1.0),
                                ("hubert-xlarge", torch.bfloat16, 1.0),
-                               ("qwen3-8b", torch.bfloat16, 8.0)):
+                               ("qwen3-8b", torch.bfloat16, 8.0),
+                               ("qwen2-0.5b", torch.float32, 1.0),
+                               ("hubert-xlarge", torch.float32, 1.0)):
         cfg = get_arch(arch)
         d = cfg.head_dim
         q, k, v = (torch.from_numpy(rng.standard_normal(
@@ -502,12 +508,16 @@ def main() -> int:
     attn_ptxas = attention_ptxas(built[1].log)
     assert len(attn_ptxas) == 2 * len(FA.HEAD_DIMS), attn_ptxas
     for name, lines in attn_ptxas.items():
+        # no attention instance spills, and ptxas serializes no wgmma
+        assert any(" 0 bytes spill stores, 0 bytes spill loads" in ln
+                   for ln in lines), (name, lines)
         if name.startswith("wgmma_bf16"):
-            # no spills, and no wgmma serialized by ptxas
-            assert any(" 0 bytes spill stores, 0 bytes spill loads" in ln
-                       for ln in lines), (name, lines)
             assert not any("Performance Loss" in ln for ln in lines), \
                 (name, lines)
+    # nor does any instance of the scan kernel (one per dtype and N)
+    scan_ptxas = ptxas_summary(built[2].log)
+    assert len(scan_ptxas) == 12 and all(
+        spill == 0 for _, spill in scan_ptxas.values()), scan_ptxas
     # every instantiation of the scheduling kernels (one per hop count)
     # spills nothing
     sched_ptxas = ptxas_summary(built[0].log)

@@ -46,13 +46,40 @@
 //     once at the end; O is divided and stored from registers, rows >= S
 //     skipped.
 // f32: flash_attention_kernel, on the CUDA cores (TF32 keeps about three
-// digits and would miss the 1e-5 tolerance of the f32 path).
-//   * one block of 128 threads per (query tile of BQ = 64 rows, q head,
-//     b); the q tile (pre-scaled) and each K/V tile of BK = 64 keys are
-//     staged in shared memory; rows of Q and K are padded to d + 1 floats
-//     so the score loop is free of bank conflicts;
-//   * each thread owns an 8 x 4 tile of the scores and an 8 x d/16 tile of
-//     the output accumulator in registers; scalar fmaf and expf only.
+// digits and would miss the 1e-5 tolerance of the f32 path), bounded by
+// the FP32 FMA rate (128 a clock an SM).  What keeps the FMA pipe fed:
+//   * occupancy: one block of 8 warps (256 threads) per (query tile of
+//     FQ = 128 rows, q head, b), one block an SM (216 KB of shared memory
+//     at d = 128, up to 255 registers a thread), so 8 warps an SM, two on
+//     each scheduler; each warp owns 16 query rows for the whole tile, so
+//     every reduction over a row stays inside the warp;
+//   * register tiles: a thread owns 4 rows (tr + 4 i, tr = lane / 8) of
+//     its warp's rows, 8 keys (tc + 8 u, tc = lane % 8) of each kv tile of
+//     FK = 64 keys and d / 8 output columns.  S = Q.K^T reads Q and K
+//     along d as LDS.128 (4 of Q, 8 of K per 4 d: 128 FMAs, 10.7 an LDS)
+//     from rows padded to d + 4 floats, so the 4 (Q) and 8 (K) rows a
+//     warp reads at once fall in distinct banks; O += P.V reads P along
+//     the keys (LDS.128) and V rows as LDS.128 (LDS.64 at d = 80), 8
+//     lanes on one contiguous row (20 loads: 256 FMAs at d = 128);
+//   * K and V tiles stream in with cp.async (16 bytes, zero-filled past S;
+//     4 bytes where a pointer is not 16-byte aligned) into two stages:
+//     the loads of tile i + 1 are issued right after the one block
+//     barrier of tile i and land while tile i is computed;
+//   * the softmax stays in registers: the row max and sum are reduced
+//     over the 8 lanes of a row with three shuffles; the sum l is kept
+//     per lane and reduced once at the end; P goes to a warp-private
+//     buffer in shared memory only as the operand of P.V, in two halves
+//     of 32 keys (__syncwarp around each), which is what keeps the block
+//     under 227 KB;
+//   * exponent: p = ex2((s - m) * log2 e) with ex2.approx: the score s
+//     (q pre-scaled by 1 / sqrt(d), as the plain version does) and the
+//     max m are subtracted before the scaling, so the rounding of the
+//     product stays relative to s - m and not to s (with q, k x 8 the
+//     scores reach several hundred, and scaling first would leave an
+//     exponent error near ulp(430) ~ 3e-5, against the 1e-5 tolerance);
+//   * causal: a warp skips a kv tile whose keys all lie above its rows
+//     (half the work of the second diagonal tile), and masks only the
+//     tiles that cross its diagonal or the ragged end.
 // The S x S scores never reach device memory.  The kernels allocate
 // nothing and launch on the caller's stream.  The tensor maps are encoded
 // on the host in the launch function through the driver entry point
@@ -61,199 +88,326 @@
 #include <cuda.h>
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
+#include <limits.h>
 #include <math.h>
 #include <stdint.h>
 
 namespace {
 
+constexpr float NEG_INF = -1e30f;
+constexpr float LOG2E = 1.4426950408889634f;
+
+__device__ __forceinline__ uint32_t smem_u32(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+__device__ __forceinline__ float ex2(float x) {
+  float y;
+  asm("ex2.approx.ftz.f32 %0, %1;\n" : "=f"(y) : "f"(x));
+  return y;
+}
+
 // ---------------------------------------------------------------- f32 path
 
-constexpr int BQ = 64;            // query rows per block
-constexpr int BK = 64;            // keys per kv tile
-constexpr int NT = 128;           // threads per block: 16 (cols) x 8 (rows)
-constexpr float NEG_INF = -1e30f;
+constexpr int FW = 8;             // warps per block
+constexpr int FNT = 32 * FW;      // threads per block
+constexpr int FQ = 16 * FW;       // query rows per block: 16 a warp
+constexpr int FK = 64;            // keys per kv tile
+constexpr int PH = 32;            // keys per half of a warp's P buffer
+constexpr int PS = PH + 8;        // row stride of the P buffer (floats)
 
-__device__ __forceinline__ float to_f32(float x) { return x; }
-__device__ __forceinline__ void store(float* p, float x) { *p = x; }
+// the f32 kernel's shared-memory layout and output chunks at head dim D
+template <int D>
+struct FTile {
+  static constexpr int DS = D + 4;                      // q, k row stride
+  static constexpr int CW = (D / 4) % 8 == 0 ? 4 : 2;   // floats per chunk
+  static constexpr int JC = D / (8 * CW);               // chunks per lane
+  static constexpr int QF = FQ * DS;                    // floats of q
+  static constexpr int KF = FK * DS;                    // of a k stage
+  static constexpr int VF = FK * D;                     // of a v stage
+  static constexpr int PF = FW * 16 * PS;               // of the P buffers
+  static constexpr size_t BYTES = sizeof(float) * (QF + 2 * KF + 2 * VF + PF);
+};
+
+__device__ __forceinline__ void cp_async16(uint32_t dst, const void* src,
+                                           bool in) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(dst),
+               "l"(src), "r"(in ? 16 : 0)
+               : "memory");
+}
+
+__device__ __forceinline__ void cp_async4(uint32_t dst, const void* src,
+                                          bool in) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(dst),
+               "l"(src), "r"(in ? 4 : 0)
+               : "memory");
+}
+
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+
+__device__ __forceinline__ void cp_async_wait_all() {
+  asm volatile("cp.async.wait_group 0;\n" ::: "memory");
+}
+
+// CW consecutive floats of shared memory into registers (LDS.128 or .64)
+template <int CW>
+__device__ __forceinline__ void lds(float (&r)[CW], const float* p) {
+  if constexpr (CW == 4) {
+    const float4 x = *reinterpret_cast<const float4*>(p);
+    r[0] = x.x, r[1] = x.y, r[2] = x.z, r[3] = x.w;
+  } else {
+    const float2 x = *reinterpret_cast<const float2*>(p);
+    r[0] = x.x, r[1] = x.y;
+  }
+}
+
+// the K and V rows k0 .. k0 + FK - 1 into one stage; rows >= S read zeros
+template <int D>
+__device__ __forceinline__ void load_kv(float* ks, float* vs,
+                                        const float* kb, const float* vb,
+                                        int k0, int S, int tid, bool vec) {
+  constexpr int DS = FTile<D>::DS;
+  if (vec) {
+    constexpr int C4 = D / 4;
+#pragma unroll
+    for (int it = 0; it < FK * C4 / FNT; ++it) {
+      const int i = tid + it * FNT, r = i / C4, c = (i % C4) * 4;
+      const bool in = k0 + r < S;
+      const size_t g = (size_t)(in ? k0 + r : 0) * D + c;
+      cp_async16(smem_u32(ks + r * DS + c), kb + g, in);
+      cp_async16(smem_u32(vs + r * D + c), vb + g, in);
+    }
+  } else {
+#pragma unroll 4
+    for (int it = 0; it < FK * D / FNT; ++it) {
+      const int i = tid + it * FNT, r = i / D, c = i % D;
+      const bool in = k0 + r < S;
+      const size_t g = (size_t)(in ? k0 + r : 0) * D + c;
+      cp_async4(smem_u32(ks + r * DS + c), kb + g, in);
+      cp_async4(smem_u32(vs + r * D + c), vb + g, in);
+    }
+  }
+}
 
 template <int D>
-constexpr int smem_floats() {
-  // q (BQ x D+1), k (BK x D+1), v (BK x D), scores (BQ x BK+1), m, l, alpha
-  return BQ * (D + 1) + BK * (D + 1) + BK * D + BQ * (BK + 1) + 3 * BQ;
-}
-
-template <typename T, int D>
-__global__ void __launch_bounds__(NT)
-flash_attention_kernel(const T* __restrict__ q, const T* __restrict__ k,
-                       const T* __restrict__ v, T* __restrict__ o, int Hq,
-                       int Hkv, int S, int causal, float scale) {
+__global__ void __launch_bounds__(FNT, 1)
+flash_attention_kernel(const float* __restrict__ q,
+                       const float* __restrict__ k,
+                       const float* __restrict__ v, float* __restrict__ o,
+                       int B, int Hq, int Hkv, int S, int causal, float scale,
+                       int vec) {
   static_assert(D % 16 == 0, "head dim must be a multiple of 16");
-  constexpr int DP = D + 1;       // padded row stride of q and k
-  constexpr int SP = BK + 1;      // padded row stride of the scores
-  constexpr int DC = D / 16;      // output columns per thread
-  extern __shared__ float smem[];
+  using F = FTile<D>;
+  constexpr int DS = F::DS, CW = F::CW, JC = F::JC;
+  extern __shared__ __align__(16) float smem[];
   float* qs = smem;
-  float* ks = qs + BQ * DP;
-  float* vs = ks + BK * DP;
-  float* ss = vs + BK * D;
-  float* m_s = ss + BQ * SP;
-  float* l_s = m_s + BQ;
-  float* a_s = l_s + BQ;
+  float* ks0 = qs + F::QF;        // two stages of K
+  float* vs0 = ks0 + 2 * F::KF;   // two stages of V
+  float* ps = vs0 + 2 * F::VF;    // a P buffer per warp
 
-  const int tid = threadIdx.x;
-  const int tx = tid & 15;        // columns tx + 16 j
-  const int ty = tid >> 4;        // rows ty + 8 i
-  const int q0 = (gridDim.x - 1 - blockIdx.x) * BQ;
-  const int h = blockIdx.y;
-  const int b = blockIdx.z;
+  const int tid = threadIdx.x, w = tid >> 5, lane = tid & 31;
+  const int tr = lane >> 3, tc = lane & 7;
+  // block -> (query tile, b, h), the heaviest query tiles first
+  const int nq = (S + FQ - 1) / FQ;
+  const int bh = blockIdx.x % (B * Hq);
+  const int q0 = (nq - 1 - (int)(blockIdx.x / (B * Hq))) * FQ;
+  const int b = bh / Hq, h = bh % Hq;
   const int kvh = h / (Hq / Hkv);
-  const T* qb = q + ((size_t)b * Hq + h) * S * D;
-  const T* kb = k + ((size_t)b * Hkv + kvh) * S * D;
-  const T* vb = v + ((size_t)b * Hkv + kvh) * S * D;
-  T* ob = o + ((size_t)b * Hq + h) * S * D;
+  const float* qb = q + ((size_t)b * Hq + h) * S * D;
+  const float* kb = k + ((size_t)b * Hkv + kvh) * S * D;
+  const float* vb = v + ((size_t)b * Hkv + kvh) * S * D;
+  float* ob = o + ((size_t)b * Hq + h) * S * D;
 
-  for (int i = tid; i < BQ * D; i += NT) {
-    const int r = i / D, c = i % D;
-    qs[r * DP + c] = q0 + r < S ? to_f32(qb[(size_t)(q0 + r) * D + c]) * scale
-                                : 0.f;
-  }
-  if (tid < BQ) {
-    m_s[tid] = NEG_INF;
-    l_s[tid] = 0.f;
-  }
-  float acc[8][DC];
-#pragma unroll
-  for (int i = 0; i < 8; ++i)
-#pragma unroll
-    for (int j = 0; j < DC; ++j) acc[i][j] = 0.f;
-
-  const int kend = causal ? min(S, q0 + BQ) : S;
-  for (int k0 = 0; k0 < kend; k0 += BK) {
-    __syncthreads();              // the previous tile's k, v, p are consumed
-    for (int i = tid; i < BK * D; i += NT) {
-      const int r = i / D, c = i % D;
-      const bool in = k0 + r < S;
-      ks[r * DP + c] = in ? to_f32(kb[(size_t)(k0 + r) * D + c]) : 0.f;
-      vs[r * D + c] = in ? to_f32(vb[(size_t)(k0 + r) * D + c]) : 0.f;
+  const int kend = causal ? min(S, q0 + FQ) : S;
+  const int nkv = (kend + FK - 1) / FK;
+  load_kv<D>(ks0, vs0, kb, vb, 0, S, tid, vec);
+  cp_async_commit();
+  // the q tile, pre-scaled, while the first K/V tile lands
+  for (int i = tid; i < FQ * D / 4; i += FNT) {
+    const int r = i / (D / 4), c = (i % (D / 4)) * 4;
+    float4 x = make_float4(0.f, 0.f, 0.f, 0.f);
+    if (q0 + r < S) {
+      const float* src = qb + (size_t)(q0 + r) * D + c;
+      x = vec ? *reinterpret_cast<const float4*>(src)
+              : make_float4(src[0], src[1], src[2], src[3]);
     }
-    __syncthreads();
+    *reinterpret_cast<float4*>(qs + r * DS + c) =
+        make_float4(x.x * scale, x.y * scale, x.z * scale, x.w * scale);
+  }
 
-    // scores of rows ty + 8 i, keys tx + 16 j
-    float sc[8][4];
+  const int rw0 = q0 + 16 * w;    // the warp's first row
+  const float* qw = qs + (16 * w + tr) * DS;
+  float* pw = ps + w * 16 * PS;
+  float acc[4][JC * CW];
+  float m[4], l[4];               // l: this lane's part of the row sum
 #pragma unroll
-    for (int i = 0; i < 8; ++i)
+  for (int i = 0; i < 4; ++i) {
+    m[i] = NEG_INF;
+    l[i] = 0.f;
 #pragma unroll
-      for (int j = 0; j < 4; ++j) sc[i][j] = 0.f;
+    for (int j = 0; j < JC * CW; ++j) acc[i][j] = 0.f;
+  }
+
+  for (int t = 0; t < nkv; ++t) {
+    cp_async_wait_all();
+    __syncthreads();              // tile t landed; tile t - 1 is consumed
+    if (t + 1 < nkv) {
+      load_kv<D>(ks0 + ((t + 1) & 1) * F::KF, vs0 + ((t + 1) & 1) * F::VF,
+                 kb, vb, (t + 1) * FK, S, tid, vec);
+      cp_async_commit();
+    }
+    const int k0 = t * FK;
+    // warp-uniform: no real row, or every key above the warp's rows
+    if (rw0 >= S || (causal && k0 > rw0 + 15)) continue;
+    const float* ks = ks0 + (t & 1) * F::KF + tc * DS;
+    const float* vs = vs0 + (t & 1) * F::VF + tc * CW;
+
+    // S = Q.K^T: rows tr + 4 i, keys tc + 8 u, summed over d in order
+    float s[4][8];
+#pragma unroll
+    for (int i = 0; i < 4; ++i)
+#pragma unroll
+      for (int u = 0; u < 8; ++u) s[i][u] = 0.f;
 #pragma unroll 4
-    for (int c = 0; c < D; ++c) {
-      float qv[8], kv[4];
+    for (int kq = 0; kq < D; kq += 4) {
+      float qf[4][4];
 #pragma unroll
-      for (int i = 0; i < 8; ++i) qv[i] = qs[(ty + 8 * i) * DP + c];
+      for (int i = 0; i < 4; ++i) lds<4>(qf[i], qw + 4 * i * DS + kq);
 #pragma unroll
-      for (int j = 0; j < 4; ++j) kv[j] = ks[(tx + 16 * j) * DP + c];
+      for (int u = 0; u < 8; ++u) {
+        float kf[4];
+        lds<4>(kf, ks + 8 * u * DS + kq);
 #pragma unroll
-      for (int i = 0; i < 8; ++i)
+        for (int e = 0; e < 4; ++e)
 #pragma unroll
-        for (int j = 0; j < 4; ++j) sc[i][j] = fmaf(qv[i], kv[j], sc[i][j]);
-    }
-#pragma unroll
-    for (int i = 0; i < 8; ++i)
-#pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        const int r = ty + 8 * i, c = tx + 16 * j;
-        const int kp = k0 + c;
-        const bool masked = kp >= S || (causal && kp > q0 + r);
-        ss[r * SP + c] = masked ? NEG_INF : sc[i][j];
+          for (int i = 0; i < 4; ++i) s[i][u] = fmaf(qf[i][e], kf[e], s[i][u]);
       }
-    __syncthreads();
+    }
+    if (k0 + FK > S || (causal && k0 + FK - 1 > rw0)) {
+#pragma unroll
+      for (int i = 0; i < 4; ++i)
+#pragma unroll
+        for (int u = 0; u < 8; ++u) {
+          const int key = k0 + tc + 8 * u;
+          if (key >= S || (causal && key > rw0 + tr + 4 * i))
+            s[i][u] = NEG_INF;
+        }
+    }
 
-    // online softmax: two threads per row, BK / 2 keys each
-    {
-      const int r = tid >> 1;
-      const int c0 = (tid & 1) * (BK / 2);
-      float* row = ss + r * SP + c0;
-      const float m_prev = m_s[r];
-      float mx = NEG_INF;
-#pragma unroll 8
-      for (int c = 0; c < BK / 2; ++c) mx = fmaxf(mx, row[c]);
+    // online softmax in registers; subtract, then scale by log2 e
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      float mx = s[i][0];
+#pragma unroll
+      for (int u = 1; u < 8; ++u) mx = fmaxf(mx, s[i][u]);
       mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 1));
-      const float m_cur = fmaxf(m_prev, mx);
+      mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 2));
+      mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 4));
+      const float mn = fmaxf(m[i], mx);
+      const float alpha = ex2((m[i] - mn) * LOG2E);
+      m[i] = mn;
       float sum = 0.f;
-#pragma unroll 8
-      for (int c = 0; c < BK / 2; ++c) {
-        const float p = expf(row[c] - m_cur);
-        row[c] = p;
-        sum += p;
+#pragma unroll
+      for (int u = 0; u < 8; ++u) {
+        s[i][u] = ex2((s[i][u] - mn) * LOG2E);
+        sum += s[i][u];
       }
-      sum += __shfl_xor_sync(0xffffffffu, sum, 1);
-      __syncwarp();               // both threads of the row read m_prev
-      if ((tid & 1) == 0) {
-        const float alpha = expf(m_prev - m_cur);
-        a_s[r] = alpha;
-        l_s[r] = l_s[r] * alpha + sum;
-        m_s[r] = m_cur;
-      }
+      l[i] = l[i] * alpha + sum;
+#pragma unroll
+      for (int j = 0; j < JC * CW; ++j) acc[i][j] *= alpha;
     }
-    __syncthreads();
 
-    // acc = acc * alpha + P.V
+    // O += P.V, one half of the keys at a time through the P buffer
 #pragma unroll
-    for (int i = 0; i < 8; ++i) {
-      const float al = a_s[ty + 8 * i];
+    for (int hf = 0; hf < 2; ++hf) {
+      __syncwarp();               // the last reads of the buffer are done
 #pragma unroll
-      for (int j = 0; j < DC; ++j) acc[i][j] *= al;
-    }
-#pragma unroll 4
-    for (int kk = 0; kk < BK; ++kk) {
-      float pv[8], vv[DC];
+      for (int i = 0; i < 4; ++i)
 #pragma unroll
-      for (int i = 0; i < 8; ++i) pv[i] = ss[(ty + 8 * i) * SP + kk];
+        for (int u = 0; u < 4; ++u)
+          pw[(tr + 4 * i) * PS + tc + 8 * u] = s[i][4 * hf + u];
+      __syncwarp();
+      const float* vh = vs + hf * PH * D;
 #pragma unroll
-      for (int j = 0; j < DC; ++j) vv[j] = vs[kk * D + tx + 16 * j];
+      for (int kq = 0; kq < PH; kq += 4) {
+        float pf[4][4];
 #pragma unroll
-      for (int i = 0; i < 8; ++i)
+        for (int i = 0; i < 4; ++i)
+          lds<4>(pf[i], pw + (tr + 4 * i) * PS + kq);
 #pragma unroll
-        for (int j = 0; j < DC; ++j) acc[i][j] = fmaf(pv[i], vv[j], acc[i][j]);
+        for (int e = 0; e < 4; ++e) {
+#pragma unroll
+          for (int jc = 0; jc < JC; ++jc) {
+            float vv[CW];
+            lds<CW>(vv, vh + (kq + e) * D + jc * 8 * CW);
+#pragma unroll
+            for (int i = 0; i < 4; ++i)
+#pragma unroll
+              for (int x = 0; x < CW; ++x)
+                acc[i][jc * CW + x] =
+                    fmaf(pf[i][e], vv[x], acc[i][jc * CW + x]);
+          }
+        }
+      }
     }
   }
 
-  // l_s was last written before the last __syncthreads above
+  // l over the 8 lanes of a row, then O / l from registers
 #pragma unroll
-  for (int i = 0; i < 8; ++i) {
-    const int r = ty + 8 * i;
-    if (q0 + r >= S) continue;
-    const float l = fmaxf(l_s[r], 1e-30f);
+  for (int i = 0; i < 4; ++i) {
+    float li = l[i];
+    li += __shfl_xor_sync(0xffffffffu, li, 1);
+    li += __shfl_xor_sync(0xffffffffu, li, 2);
+    li += __shfl_xor_sync(0xffffffffu, li, 4);
+    const int row = rw0 + tr + 4 * i;
+    if (row >= S) continue;
+    li = fmaxf(li, 1e-30f);
+    float* orow = ob + (size_t)row * D + tc * CW;
 #pragma unroll
-    for (int j = 0; j < DC; ++j)
-      store(ob + (size_t)(q0 + r) * D + tx + 16 * j, acc[i][j] / l);
+    for (int jc = 0; jc < JC; ++jc) {
+      const float* a = acc[i] + jc * CW;
+      if constexpr (CW == 4)
+        *reinterpret_cast<float4*>(orow + jc * 8 * CW) =
+            make_float4(a[0] / li, a[1] / li, a[2] / li, a[3] / li);
+      else
+        *reinterpret_cast<float2*>(orow + jc * 8 * CW) =
+            make_float2(a[0] / li, a[1] / li);
+    }
   }
 }
 
-template <typename T, int D>
+bool aligned16(const void* p) {
+  return reinterpret_cast<uintptr_t>(p) % 16 == 0;
+}
+
+template <int D>
 int launch(const void* q, const void* k, const void* v, void* o, int B,
            int Hq, int Hkv, int S, int causal, cudaStream_t stream) {
-  const size_t smem = smem_floats<D>() * sizeof(float);
-  auto kern = flash_attention_kernel<T, D>;
+  const size_t smem = FTile<D>::BYTES;
+  auto kern = flash_attention_kernel<D>;
   cudaError_t e = cudaFuncSetAttribute(
       kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (e != cudaSuccess) return (int)e;
+  const long long blocks = (long long)((S + FQ - 1) / FQ) * B * Hq;
+  if (blocks > INT_MAX) return (int)cudaErrorInvalidValue;
   const float scale = (float)(1.0 / sqrt((double)D));
-  dim3 grid((S + BQ - 1) / BQ, Hq, B);
-  kern<<<grid, NT, smem, stream>>>(
-      static_cast<const T*>(q), static_cast<const T*>(k),
-      static_cast<const T*>(v), static_cast<T*>(o), Hq, Hkv, S, causal,
-      scale);
+  const int vec = aligned16(q) && aligned16(k) && aligned16(v);
+  kern<<<(unsigned)blocks, FNT, smem, stream>>>(
+      static_cast<const float*>(q), static_cast<const float*>(k),
+      static_cast<const float*>(v), static_cast<float*>(o), B, Hq, Hkv, S,
+      causal, scale, vec);
   return (int)cudaGetLastError();
 }
 
-template <typename T>
 int dispatch(const void* q, const void* k, const void* v, void* o, int B,
              int Hq, int Hkv, int S, int D, int causal, cudaStream_t st) {
   switch (D) {
-    case 64: return launch<T, 64>(q, k, v, o, B, Hq, Hkv, S, causal, st);
-    case 80: return launch<T, 80>(q, k, v, o, B, Hq, Hkv, S, causal, st);
-    case 96: return launch<T, 96>(q, k, v, o, B, Hq, Hkv, S, causal, st);
-    case 128: return launch<T, 128>(q, k, v, o, B, Hq, Hkv, S, causal, st);
+    case 64: return launch<64>(q, k, v, o, B, Hq, Hkv, S, causal, st);
+    case 80: return launch<80>(q, k, v, o, B, Hq, Hkv, S, causal, st);
+    case 96: return launch<96>(q, k, v, o, B, Hq, Hkv, S, causal, st);
+    case 128: return launch<128>(q, k, v, o, B, Hq, Hkv, S, causal, st);
     default: return (int)cudaErrorInvalidValue;
   }
 }
@@ -266,10 +420,6 @@ __host__ __device__ constexpr int kv_tile() { return D <= 80 ? 128 : 64; }
 constexpr int ST = 2;             // stages of the K/V ring
 constexpr int NTW = 384;          // 2 consumer warpgroups + 1 producer
 constexpr int BOX = 128;          // bytes of one swizzled row box (64 bf16)
-
-__device__ __forceinline__ uint32_t smem_u32(const void* p) {
-  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
-}
 
 __device__ __forceinline__ void mbar_init(uint32_t bar, int count) {
   asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(bar),
@@ -377,12 +527,6 @@ __device__ __forceinline__ void named_sync(int id) {
 }
 __device__ __forceinline__ void named_arrive(int id) {
   asm volatile("bar.arrive %0, 256;\n" ::"r"(id) : "memory");
-}
-
-__device__ __forceinline__ float ex2(float x) {
-  float y;
-  asm("ex2.approx.ftz.f32 %0, %1;\n" : "=f"(y) : "f"(x));
-  return y;
 }
 
 __device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
@@ -828,5 +972,5 @@ extern "C" int flash_attention_launch(const void* q, const void* k,
     return (int)cudaErrorInvalidValue;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   return bf16 ? dispatch_wgmma(q, k, v, o, B, Hq, Hkv, S, D, causal, st)
-              : dispatch<float>(q, k, v, o, B, Hq, Hkv, S, D, causal, st);
+              : dispatch(q, k, v, o, B, Hq, Hkv, S, D, causal, st);
 }

@@ -5,14 +5,25 @@ kernel``.
 
 The TPU kernel's ``block_q``/``block_k`` are its tiling; the CUDA
 kernels pick their own.  The launch function chooses the kernel by the
-inputs' dtype: bfloat16 runs on the tensor cores (wgmma, TMA, 128 query
-rows by 128 keys), float32 on the CUDA cores (scalar f32 FMAs, 64 by
-64), since TF32 would miss the f32 path's 1e-5 tolerance.  The wrapper
-checks device, dtype, shape and contiguity and raises on what the kernel
-does not take; on CUDA tensors it launches the kernel or raises, on CPU
-tensors it runs the plain version (:func:`.ref.attention_ref`).
-:data:`LAUNCHES` counts kernel launches, :data:`VARIANT_LAUNCHES` the
-launches of each of the two kernels.
+inputs' dtype:
+
+* bfloat16 runs on the tensor cores (wgmma, TMA, 128 query rows by 64
+  or 128 keys), bounded by the bf16 tensor-core rate;
+* float32 runs on the CUDA cores, since TF32 would miss the f32 path's
+  1e-5 tolerance, bounded by the FP32 FMA rate: 8 warps a block (one
+  block an SM), 128 query rows by 64 keys, each warp owning 16 rows so
+  the softmax stays in registers; a thread holds a 4 x 8 tile of the
+  scores and a 4 x d/8 tile of the output, read from shared memory as
+  128-bit loads; K and V tiles stream in with cp.async into two stages.
+  Its exponent is ``ex2((s - m) * log2 e)``: the running max is
+  subtracted before the scaling, so the rounding of the product is
+  relative to ``s - m``, not to scores of several hundred.
+
+The wrapper checks device, dtype, shape and contiguity and raises on
+what the kernel does not take; on CUDA tensors it launches the kernel or
+raises, on CPU tensors it runs the plain version
+(:func:`.ref.attention_ref`).  :data:`LAUNCHES` counts kernel launches,
+:data:`VARIANT_LAUNCHES` the launches of each of the two kernels.
 """
 from __future__ import annotations
 

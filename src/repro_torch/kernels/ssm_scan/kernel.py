@@ -3,10 +3,20 @@ kernel ``selective_scan_kernel`` (``kernels/csrc/ssm_scan.cu``), the
 twin of ``repro.kernels.ssm_scan.kernel``.
 
 The TPU kernel's ``block_d``/``block_s`` are its tiling; the CUDA kernel
-runs one thread per (batch row, channel, state) and stages its own
-chunks.  The wrapper checks device, dtype, shape and contiguity and
-raises on what the kernel does not take; on CUDA tensors it launches the
-kernel or raises, on CPU tensors it runs the plain version
+picks its own, bounded by the one exp of every (batch row, step,
+channel, state) on the special-function units.  A thread holds up to 8
+states of one channel, so y is summed in registers (and over the N / 8
+lanes of a channel with shuffles); a block of 4 warps walks its channels
+through chunks of 32 steps, each warp scanning a run of 8 of them from a
+zero state while it keeps its decays, then the runs' (product of decays,
+state) pairs are folded in order and each run is replayed from its true
+carry (:func:`.ref.selective_scan_runs` is that algebra in plain
+PyTorch).  The decays are ``2 ** (dt * A log2 e)`` with the hardware's
+approximate ``ex2``, log2 e folded into A as it is loaded.
+
+The wrapper checks device, dtype, shape and contiguity and raises on
+what the kernel does not take; on CUDA tensors it launches the kernel or
+raises, on CPU tensors it runs the plain version
 (:func:`.ref.selective_scan_ref`).  :data:`LAUNCHES` counts kernel
 launches.
 """
@@ -27,7 +37,8 @@ __all__ = ["LAUNCHES", "MAX_STATE", "build_library", "reset_launches",
 
 SOURCE = Path(__file__).resolve().parents[1] / "csrc" / "ssm_scan.cu"
 NVCC_FLAGS = _nvcc.BASE_FLAGS
-# the N lanes of one channel share a warp: N is a power of two <= 32
+# the kernel is built for state sizes that are powers of two up to 32
+# (one thread holds up to 8 states, a warp up to 4 threads of a channel)
 MAX_STATE = 32
 
 LAUNCHES: Dict[str, int] = {"selective_scan_kernel": 0}

@@ -259,18 +259,20 @@ _SHAPES = [(1, 4, 4, 256, 64), (2, 8, 2, 256, 64), (1, 4, 1, 512, 128),
            (1, 14, 2, 200, 64), (2, 4, 4, 130, 80), (1, 4, 2, 100, 96)]
 # (B, Hq, Hkv): GQA 1:1, 4:1, 7:1, 8:1, B = 2 in two of them
 _HEADS = [(2, 4, 4), (1, 8, 2), (1, 14, 2), (2, 8, 1)]
-# the tensor-core kernel's edges: every head dim, ragged S below, at and
-# above its 128-row tiles (S = 1 and 37 below one 64-row warpgroup),
-# every GQA ratio, q and k scaled by 8 in every other case (scores up to
-# several hundred, so the running max moves across kv tiles), and
-# S = 4096 at one head; v scaled too in test_..._large_v_on_card
+# the edges of both kernels: every head dim, ragged S below, at and
+# above their 128-row query tiles and 64-key kv tiles (S = 1 and 37 below
+# one 64-row warpgroup or one 16-row warp of the f32 kernel), every GQA
+# ratio, q and k scaled by 8 in every other case (scores up to several
+# hundred, so the running max moves across kv tiles), and S = 4096 at
+# one head; v scaled too in test_..._large_v_on_card
 _EDGES = [(*_HEADS[i % 4], S, d, 8.0 if i % 2 else 1.0)
           for d in (64, 80, 96, 128)
           for i, S in enumerate((1, 37, 64, 100, 130, 200))] + \
     [(1, 1, 1, 4096, d, 8.0) for d in (64, 80, 96, 128)]
 _CASES = [(*shape, 1.0, dtype) for shape in _SHAPES
           for dtype in (torch.float32, torch.bfloat16)] + \
-    [(*edge, torch.bfloat16) for edge in _EDGES]
+    [(*edge, dtype) for edge in _EDGES
+     for dtype in (torch.bfloat16, torch.float32)]
 
 
 @pytest.mark.parametrize("B,Hq,Hkv,S,d,scale,dtype", _CASES, ids=str)
@@ -346,6 +348,85 @@ def test_selective_scan_kernel_equals_plain_on_card(B, S, Di, N, dtype,
     want = selective_scan_ref(x, dt, A, Bm, Cm)
     assert y.dtype == dtype and y.shape == x.shape
     torch.testing.assert_close(y.float(), want.float(), **SCAN_TOL[dtype])
+
+
+@pytest.mark.parametrize("d", [64, 80, 96, 128])
+@pytest.mark.parametrize("causal", [True, False])
+def test_flash_attention_f32_unaligned_on_card(d, causal, card):
+    """f32 inputs 4 bytes past a 16-byte boundary: the kernel loads K and
+    V with 4-byte copies and q with scalar loads instead of 16-byte
+    vectors, with the same result."""
+    rng = np.random.default_rng(7)
+    q, k, v = (_normal(rng, (1 * h * 150 * d + 1,), torch.float32, card)[1:]
+               .view(1, h, 150, d) for h in (4, 2, 2))
+    assert all(t.data_ptr() % 16 == 4 for t in (q, k, v))
+    FA.reset_launches()
+    out = flash_attention(q, k, v, causal=causal)
+    assert FA.VARIANT_LAUNCHES == _variant(torch.float32)
+    want = attention_ref(q, k, v, causal=causal)
+    torch.testing.assert_close(out, want, **TOL[torch.float32])
+    assert torch.equal(out, flash_attention(q.clone(), k.clone(), v.clone(),
+                                            causal=causal))
+
+
+# the scan kernel's edges: S = 1; S and Di ragged against its chunks of
+# 32 steps and its blocks of 8, 16 or 32 channels (and rows that are not
+# a multiple of 16 bytes, loaded without vectors); every state size;
+# S = 4096 with Di = 1024, so the carry crosses 512 runs; dt x 10 (decays
+# near 0) and dt x 0.01 (decays near 1); B = 3
+_SCAN_EDGES = [(1, 1, 64, 16, 1.0), (1, 33, 17, 16, 1.0),
+               (2, 95, 70, 8, 1.0), (1, 31, 1000, 16, 1.0),
+               (1, 65, 9, 32, 1.0)] + \
+    [(1, 100, 40, n, 1.0) for n in (1, 2, 4, 8, 16, 32)] + \
+    [(1, 4096, 1024, 16, 1.0), (1, 300, 256, 16, 10.0),
+     (1, 1000, 256, 16, 0.01), (3, 77, 48, 16, 1.0)]
+
+
+def _scan_inputs_on_card(rng, B, S, Di, N, dtype, dev, dt_scale=1.0):
+    x = _normal(rng, (B, S, Di), dtype, dev)
+    dt = torch.from_numpy((np.logaddexp(
+        0.0, rng.standard_normal((B, S, Di)) - 2.0) * dt_scale
+    ).astype(np.float32)).to(dev, dtype)
+    A = torch.from_numpy(-np.exp(rng.standard_normal((Di, N)) * 0.3)
+                         .astype(np.float32)).to(dev)
+    return x, dt, A, _normal(rng, (B, S, N), dtype, dev), \
+        _normal(rng, (B, S, N), dtype, dev)
+
+
+@pytest.mark.parametrize("B,S,Di,N,dt_scale", _SCAN_EDGES, ids=str)
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
+                         ids=str)
+def test_selective_scan_kernel_edges_on_card(B, S, Di, N, dt_scale, dtype,
+                                             card):
+    args = _scan_inputs_on_card(np.random.default_rng(3), B, S, Di, N,
+                                dtype, card, dt_scale)
+    SS.reset_launches()
+    y = selective_scan(*args)
+    assert SS.LAUNCHES == {"selective_scan_kernel": 1}
+    torch.cuda.synchronize()
+    want = selective_scan_ref(*args)
+    assert y.dtype == dtype and y.shape == args[0].shape
+    torch.testing.assert_close(y.float(), want.float(), **SCAN_TOL[dtype])
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
+                         ids=str)
+def test_selective_scan_kernel_unaligned_on_card(dtype, card):
+    """Inputs one element past a 16-byte boundary: the kernel stages them
+    with plain loads instead of 16-byte copies, with the same result."""
+    rng = np.random.default_rng(4)
+    B, S, Di, N = 1, 70, 64, 16
+
+    def shifted(t):
+        buf = torch.empty(t.numel() + 1, dtype=t.dtype, device=t.device)
+        buf[1:] = t.reshape(-1)
+        return buf[1:].view(t.shape)
+
+    x, dt, A, Bm, Cm = _scan_inputs_on_card(rng, B, S, Di, N, dtype, card)
+    got = selective_scan(shifted(x), shifted(dt), A, shifted(Bm),
+                         shifted(Cm))
+    torch.testing.assert_close(got, selective_scan(x, dt, A, Bm, Cm),
+                               rtol=0, atol=0)
 
 
 def test_rejected_shapes_raise_on_card_without_fallback(card):

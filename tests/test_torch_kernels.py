@@ -22,7 +22,8 @@ from repro_torch.kernels.flash_attention.ops import flash_attention
 from repro_torch.kernels.flash_attention.ref import attention_ref
 from repro_torch.kernels.ssm_scan import kernel as ss_kernel
 from repro_torch.kernels.ssm_scan.ops import selective_scan
-from repro_torch.kernels.ssm_scan.ref import selective_scan_ref
+from repro_torch.kernels.ssm_scan.ref import (selective_scan_ref,
+                                              selective_scan_runs)
 
 DTYPES = {"float32": (jnp.float32, torch.float32),
           "bfloat16": (jnp.bfloat16, torch.bfloat16)}
@@ -163,6 +164,28 @@ def test_selective_scan_state_carry_matches_jax(block_s):
                     interpret=True)
     got = selective_scan(xt, dt_, at, bt, ct)
     np.testing.assert_allclose(_f32(got), _f32(want), rtol=1e-5, atol=1e-5)
+
+
+@pytest.mark.parametrize("B,S,Di,N", [(1, 256, 64, 16), (2, 130, 48, 8)])
+@pytest.mark.parametrize("run_len,runs_per_chunk", [
+    (8, 4),             # the kernel's runs and chunks; divides S = 256
+    (8, None), (7, 4), (64, None), (100, 3)])
+def test_selective_scan_runs_matches_jax_kernel(B, S, Di, N, run_len,
+                                                runs_per_chunk):
+    """The CUDA scan kernel's algebra (runs scanned from zero, the
+    (prod of decays, h) fold, the replay from the true carry, exp as
+    2 ** (dt * A log2 e)) in plain PyTorch, against the JAX kernel and the
+    plain sequential version, at run lengths that do and do not divide
+    S, f32."""
+    (xj, xt), (dj, dt_), (aj, at), (bj, bt), (cj, ct) = _scan_inputs(
+        B, S, Di, N, "float32", seed=5)
+    want = jax_scan(xj, dj, aj, bj, cj, block_d=Di, block_s=S,
+                    interpret=True)
+    got = selective_scan_runs(xt, dt_, at, bt, ct, run_len, runs_per_chunk)
+    assert got.dtype == torch.float32 and got.shape == xt.shape
+    np.testing.assert_allclose(_f32(got), _f32(want), **_scan_tol("float32"))
+    torch.testing.assert_close(got, selective_scan_ref(xt, dt_, at, bt, ct),
+                               rtol=2e-4, atol=2e-4)
 
 
 @pytest.mark.parametrize("causal", [True, False])
