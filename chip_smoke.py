@@ -14,17 +14,29 @@ equality of every output), drives the scheduler's main path —
 ``Scheduler.submit`` on the paper's worked example and on the exp7
 deployment (16 ECUs, 500 tasks, the 301-alpha HVLB_CC grid in one
 kernel launch) — and checks the results against the pinned paper
-numbers and the port's scalar reference.  It then drives the kernel
-entry points (``repro_torch.kernels.*.ops``) at published model widths
-— attention at qwen3-8b, qwen2-0.5b and hubert-xlarge width (each in
-bf16 and in f32), the selective scan at falcon-mamba-7b width, S = 4096
-— and holds each
-output against the plain version on the card at the tolerances of
+numbers and the port's scalar reference.  It drives the session's
+replanning loop at exp7 (probe_update and update of a late and a
+mid-queue task, a batch of three events, a link-speed change; four of
+its resumed plan launches, each from the state of a replayed prefix, are
+held exactly to the plain version on the same inputs), the fault
+methods (the paper example's drill, 65 -> 89 with processor 2 down, and
+mark_failed / degrade / restore at the exp9 deployment, 8 ECUs and 240
+tasks) and the scheduler service (``repro_torch.service``, the exp10
+trace of 8 tenants with coalescing on and off), all on the card, and
+holds every plan bit for bit to the port's scalar session on the same
+calls (a fault replan also to a fresh session started with its faults,
+a service fleet to a scalar ``submit_many`` of the final state).  It
+then drives the kernel entry points (``repro_torch.kernels.*.ops``) at
+published model widths — attention at qwen3-8b, qwen2-0.5b and
+hubert-xlarge width (each in bf16 and in f32), the selective scan at
+falcon-mamba-7b width, S = 4096 — and holds each output against the
+plain version on the card at the tolerances of
 ``tests/test_kernels.py``, with the plain versions in full f32 (TF32
 off); attention is also held to a relative RMS error per block of 64
 query rows, a limit that a control dropping one kv tile must exceed.
 bf16 attention must go to the tensor-core kernel and f32 to the
-CUDA-core one, and each attention case is timed warm and with the L2
+CUDA-core one, bf16 with q, k and v scaled by 8 must hold the elementwise
+bf16 tolerance, and each attention case is timed warm and with the L2
 made cold before every call.  ptxas must report no spill in any
 instance of the scheduling, attention and scan kernels.  Each path is
 driven with every launch count at 0 just before it and read just after.
@@ -45,6 +57,8 @@ kernel's output bytes and ``torch.cuda.max_memory_allocated()`` over the
 submit.  Any failure raises, and the exit code is not 0;
 without a CUDA device it exits with 2 before printing any result.
 """
+import asyncio
+import dataclasses
 import json
 import math
 import re
@@ -63,10 +77,12 @@ import torch.nn.functional as F  # noqa: E402
 
 from repro_torch.core import (HSV_CC, HVLB_CC_B, HVLB_CC_IC,  # noqa: E402
                               DEFAULT_BATCH_MAX, CompiledInstance,
-                              CudaBackend, Scheduler, fully_switched_topology,
-                              hprv_b, paper_spg, paper_topology, plan_waves,
-                              priority_queue, random_spg, rank_matrix,
-                              schedule_violations)
+                              CudaBackend, LinkDegraded, LinkDown,
+                              ProcessorDown, Scheduler,
+                              fully_switched_topology, hprv_b, paper_spg,
+                              paper_topology, plan_waves, priority_queue,
+                              random_spg, rank_matrix, schedule_violations)
+from repro_torch.service import SchedulerService  # noqa: E402
 from repro_torch.configs import SHAPES, get_arch  # noqa: E402
 from repro_torch.core.backends import cuda as K  # noqa: E402
 from repro_torch.kernels.flash_attention import kernel as FA  # noqa: E402
@@ -100,6 +116,13 @@ ATTN_RMS_LIMIT = {torch.float32: 1e-4, torch.bfloat16: 2e-2}
 
 PAPER_POLICY = dict(alpha_max=3.0, period=150.0)
 EXP7_POLICY = HVLB_CC_B(alpha_max=3.0, alpha_step=0.01)
+# the exp9 and exp10 deployments (benchmarks/exp9_faults.py,
+# benchmarks/exp10_service.py): P = 8 switched ECUs; exp9's index 7 is a
+# cold standby (rate 0.3)
+EXP9_RATES = [1.0, 1.2, 0.9, 1.1, 1.3, 0.95, 1.05, 0.3]
+EXP10_RATES = [1.0, 1.2, 0.9, 1.1, 1.3, 0.95, 1.05, 0.8]
+EXP9_10_SPEEDS = [1.0, 2.0, 1.5, 1.0, 3.0, 2.5, 1.0, 2.0]
+EXP9_POLICY = HVLB_CC_B(alpha_max=1.0, alpha_step=0.25)   # exp10's too
 
 
 def emit(obj) -> None:
@@ -366,11 +389,13 @@ def attention_cases(dev):
 
 
 def large_v_probe(dev) -> dict:
-    """q, k and v all scaled by 8 on inputs where the kernel missed the
-    elementwise bf16 tolerance (S = 200, d = 96, 8 / 2 heads, seed
-    200096): the kernel and SDPA's flash backend, which also rounds P to
-    bf16, against the plain version; the kernel's block_rel_rms must stay
-    in its limit and its max abs error within twice SDPA's."""
+    """q, k and v all scaled by 8 on inputs where rounding P to bf16
+    before P.V misses the elementwise bf16 tolerance (S = 200, d = 96,
+    8 / 2 heads, seed 200096): the kernel and SDPA's flash backend, which
+    rounds P so, against the plain version; the kernel's block_rel_rms
+    must stay in its limit and its max abs error within twice SDPA's,
+    and since P.V adds P's bf16 high part and its residual, the kernel
+    must hold the elementwise bf16 tolerance too."""
     rng = np.random.default_rng(200096)
     q, k, v = (torch.from_numpy(rng.standard_normal(
         (1, h, 200, 96)).astype(np.float32)).to(dev, torch.bfloat16) * 8
@@ -395,7 +420,8 @@ def large_v_probe(dev) -> dict:
                 "block_rel_rms": block_rel_rms(out, want)}
         if not (row["kernel"]["block_rel_rms"] <= ATTN_RMS_LIMIT[q.dtype]
                 and row["kernel"]["max_abs_err"]
-                <= 2 * row["sdpa_flash"]["max_abs_err"]):
+                <= 2 * row["sdpa_flash"]["max_abs_err"]
+                and row["kernel"]["elementwise_ok"]):
             raise AssertionError(f"large v: {row}")
         res["causal" if causal else "full"] = row
     return res
@@ -487,6 +513,337 @@ def check_plan(g, tg, q, alphas, period):
     err = compare("sched_plan_kernel", ko.tensors() + kst + (kaft, kproc),
                   po.tensors() + pst + (paft, pproc))
     return err, args, (ko, kst, kaft, kproc), len(waves)
+
+
+def check_resumed(resumed, picks: int = 4) -> dict:
+    """sched_plan_kernel on the staged inputs of resumed launches (one
+    alpha, a suffix of waves, the state of the replayed prefix), held
+    exactly to its plain version on the same card tensors: ``picks``
+    launches evenly spaced over the path's resumed launches."""
+    if not resumed:
+        raise AssertionError("no sched_plan_kernel launch resumed from a "
+                             "replayed prefix")
+    idx = sorted({round(k * (len(resumed) - 1) / (picks - 1))
+                  for k in range(picks)})
+    err, rows = 0.0, []
+    for k in idx:
+        args = resumed[k]
+        st = args["state"]
+        if not bool((st[1] > 0).any()):
+            raise AssertionError(f"resumed launch {k}: empty processor "
+                                 f"state")
+        ko, kst, kaft, kproc = K.sched_plan(**args)
+        torch.cuda.synchronize()
+        po, pst, paft, pproc = K.plan_plain(**args)
+        err = max(err, compare(f"sched_plan_kernel resumed launch {k}",
+                               ko.tensors() + kst + (kaft, kproc),
+                               po.tensors() + pst + (paft, pproc)))
+        rows.append({"launch": k, "waves": args["task"].shape[0],
+                     "placed": int((args["proc0"] < args["T"].P).sum()),
+                     "busy_links": int((st[0] > 0).sum())})
+    return {"resumed_launches": len(resumed), "held": rows,
+            "max_abs_err": err}
+
+
+def same_plan(what, got, want) -> None:
+    """A plan of the card held to the port's scalar session, bit for bit:
+    every grid makespan, the best alpha, the best schedule's placements,
+    start and finish times and message placements, the period."""
+    ok = (got.period == want.period
+          and (got.sweep is None) == (want.sweep is None)
+          and all(np.array_equal(getattr(got.schedule, f),
+                                 getattr(want.schedule, f))
+                  for f in ("proc", "start", "finish"))
+          and got.schedule.messages == want.schedule.messages
+          and np.array_equal(got.graph.weights, want.graph.weights))
+    if ok and got.sweep is not None:
+        ok = (np.array_equal(got.sweep.alphas, want.sweep.alphas)
+              and np.array_equal(got.sweep.makespans, want.sweep.makespans)
+              and got.sweep.best_alpha == want.sweep.best_alpha)
+    if not ok or got.fallback is not None or got.backend != "cuda":
+        raise AssertionError(f"{what}: the card's plan differs from the "
+                             f"scalar session's")
+
+
+def same_replay(what, got, want) -> dict:
+    """``ReplayStats`` of the card held to the scalar session's.  A fresh
+    grid (suffix 0) runs as the fused sweep, every alpha of it on the card
+    where the host loop skips the alphas inside each trace's invariance
+    interval: its two simulation counts are held to the fused sweep's own,
+    every other field to the scalar session's."""
+    a, b = dataclasses.asdict(got.replay), dataclasses.asdict(want.replay)
+    if got.sweep is not None and len(got.sweep.alphas) > 1 \
+            and got.replay.sims_resumed == 0:
+        n_alpha = len(got.sweep.alphas)
+        if (a.pop("sims_full"), a.pop("decisions_simulated")) != \
+                (n_alpha, n_alpha * got.graph.n):
+            raise AssertionError(f"{what}: fused sweep counts {got.replay}")
+        del b["sims_full"], b["decisions_simulated"]
+    if a != b:
+        raise AssertionError(f"{what}: replay {got.replay} != {want.replay}")
+    return dataclasses.asdict(got.replay)
+
+
+def spec_faults(spec):
+    """A fault spec as the fault records that start a session with it."""
+    return [ProcessorDown(p) for p in spec.down_procs] + [
+        LinkDown(link) if math.isinf(f) else LinkDegraded(link, f)
+        for link, f in spec.link_factors]
+
+
+def timed_calls(sched, calls):
+    """Run ``(name, method, kwargs)`` calls on ``sched``: each plan, its
+    wall seconds, its sched_plan_kernel launches and the device backend's
+    last_timing."""
+    out = []
+    for name, method, kw in calls:
+        n0 = K.LAUNCHES["sched_plan_kernel"]
+        t0 = time.perf_counter()
+        plan = getattr(sched, method)(**kw)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        inst = sched._last.inst if sched._last is not None else None
+        be = inst._backends.get("cuda") if inst is not None else None
+        timing = {} if isinstance(plan, int) or be is None \
+            else dict(be.last_timing)
+        out.append((name, plan, wall, K.LAUNCHES["sched_plan_kernel"] - n0,
+                    timing))
+    return out
+
+
+def update_calls(g, q):
+    """The update script at exp7: submit; probe_update and update for a
+    task late in the queue, then for one at mid-queue; a batch of three
+    events; one link-speed change."""
+    late, mid = q[int(0.95 * len(q))], q[len(q) // 2]
+    return [("submit", "submit", dict(g=g)),
+            ("probe_late", "probe_update", dict(task_rates={late: 1.3})),
+            ("update_late", "update", dict(task_rates={late: 1.3})),
+            ("probe_mid", "probe_update", dict(task_rates={mid: 0.8})),
+            ("update_mid", "update", dict(task_rates={mid: 0.8})),
+            ("batch3", "update", dict(task_rates=[
+                {q[-3]: 1.2}, {q[-40]: 0.9, q[-2]: 1.1}, {q[-7]: 1.05}])),
+            ("link_speed", "update", dict(link_speed={"l3": 1.7}))]
+
+
+def exp9_instance():
+    """The exp9 deployment at its full size (benchmarks/exp9_faults.py,
+    run(full=True)): 8 switched ECUs, one 240-task TGFF graph of seed
+    9000."""
+    tg = fully_switched_topology(8, EXP9_RATES, EXP9_10_SPEEDS)
+    g = random_spg(240, np.random.default_rng(9000), ccr=1.0, tg=tg,
+                   outdeg_constraint=True)
+    return g, tg
+
+
+def exp10_trace():
+    """The exp10 request trace at its full size
+    (benchmarks/exp10_service.py, _make_trace(full=True)): 8 tenants, each
+    registering 4 graphs of 28 tasks, then 3 bursts of 3 drift updates."""
+    tg = fully_switched_topology(8, EXP10_RATES, EXP9_10_SPEEDS)
+    tenants = []
+    for t in range(8):
+        rng = np.random.default_rng(10_000 + t)
+        graphs = [random_spg(28, rng, ccr=1.0, tg=tg, outdeg_constraint=True)
+                  for _ in range(4)]
+        for k, g in enumerate(graphs):
+            g.name = f"t{t}g{k}"
+        bursts = [[(f"t{t}g{int(rng.integers(4))}", int(rng.integers(28)),
+                    float(rng.uniform(0.7, 1.4))) for _ in range(3)]
+                  for _ in range(3)]
+        tenants.append((f"tenant{t}", graphs, bursts))
+    return tg, tenants
+
+
+async def drive_service(svc, tenants):
+    """exp10's request pattern: the registration bursts of all tenants
+    at once, then each drift burst of all tenants at once; the final
+    views."""
+    clients = {name: svc.client(name) for name, _, _ in tenants}
+    resps = await asyncio.gather(*[
+        clients[name].register(g, name=g.name)
+        for name, graphs, _ in tenants for g in graphs])
+    for b in range(3):
+        resps += await asyncio.gather(*[
+            clients[name].update(task_rates={task: f}, graph=gname)
+            for name, _, bursts in tenants for gname, task, f in bursts[b]])
+    bad = [r for r in resps if not r.ok]
+    if bad:
+        raise AssertionError(f"service errors: {bad[:3]}")
+    finals = {}
+    for name, graphs, _ in tenants:
+        for g in graphs:
+            r = await clients[name].plan(graph=g.name)
+            if not r.ok:
+                raise AssertionError(f"service plan error: {r.error}")
+            finals[(name, g.name)] = r.result
+    return finals
+
+
+def phase_update(drive, paths, g7, tg7, q7s) -> dict:
+    """The replanning loop at exp7: submit, probe_update/update of a
+    late and a mid-queue task, a batch of three events, a link-speed
+    change; every plan held to the port's scalar session on the same
+    calls.  A resumed update launches sched_plan_kernel once per
+    re-simulated alpha, from the state of the replayed prefix."""
+    calls = update_calls(g7, q7s)
+    cu7 = Scheduler(tg7, policy=EXP7_POLICY)
+    # the staged inputs of every launch that starts from a replayed
+    # prefix (a placed task in proc0), kept to hold the kernel against
+    # its plain version after the path
+    launch, resumed = K.sched_plan, []
+
+    def recording(**args):
+        if bool((args["proc0"] < args["T"].P).any()):
+            resumed.append(args)
+        return launch(**args)
+
+    K.sched_plan = recording
+    try:
+        upd = drive("exp7_update", lambda: timed_calls(cu7, calls))
+    finally:
+        K.sched_plan = launch
+    resumed_err = check_resumed(resumed)
+    t1 = time.perf_counter()
+    upd_ref = timed_calls(Scheduler(tg7, policy=EXP7_POLICY,
+                                    backend="scalar"), calls)
+    upd_scalar_s = time.perf_counter() - t1
+    upd_rows = {}
+    for (name, got, wall, launches, timing), (_, want, swall, _, _) in zip(
+            upd, upd_ref):
+        row = {"wall_s": wall, "scalar_wall_s": swall,
+               "sched_plan_kernel": launches}
+        if isinstance(got, int):            # probe_update: the prefix
+            assert got == want, (name, got, want)
+            row["prefix"] = got
+        else:
+            same_plan(f"exp7 {name}", got, want)
+            row.update(replay=same_replay(f"exp7 {name}", got, want),
+                       makespan=got.makespan, best_alpha=got.best_alpha,
+                       timing_s=timing)
+        upd_rows[name] = row
+    assert upd_rows["update_late"]["replay"]["suffix_start"] == \
+        upd_rows["probe_late"]["prefix"] > 0
+    assert upd_rows["batch3"]["replay"]["coalesced"] == 3
+    assert upd_rows["link_speed"]["replay"]["suffix_start"] == 0
+    return {"phase": "main_update", "P": tg7.n_procs, "n": g7.n,
+            "alphas": len(upd[0][1].sweep.alphas), "calls": upd_rows,
+            "scalar_session_s": upd_scalar_s,
+            "resumed_vs_plain": resumed_err,
+            "launches": paths["exp7_update"]}
+
+
+def phase_faults(drive, paths, gp, tgp) -> dict:
+    """Faults: the paper drill, then mark_failed / degrade / restore at
+    the exp9 deployment, each plan held to the scalar session and to a
+    fresh session started with the faults of that moment."""
+    drill = Scheduler(tgp, policy=HVLB_CC_IC(alpha_max=2.0, alpha_step=0.1))
+
+    def drill_path():
+        healthy = drill.submit(gp)
+        return healthy, drill.mark_failed(proc=2)
+
+    healthy, failed = drive("paper_faults", drill_path)
+    assert (healthy.makespan, failed.makespan) == (65.0, 89.0), \
+        (healthy.makespan, failed.makespan)
+    assert schedule_violations(failed.schedule, drill.faults) == []
+    assert failed.backend == "cuda" and failed.fallback is None
+    g9, tg9 = exp9_instance()
+    probe9 = Scheduler(tg9, policy=EXP9_POLICY, backend="scalar")
+    p9 = probe9.submit(g9)
+    hot = int(p9.schedule.proc[np.argmin(p9.schedule.start)])
+    sink = [t for t in range(g9.n) if not g9.succ[t]][-1]
+    # l8 is the cold standby's link: the only link of this graph whose
+    # loss leaves every committed prefix feasible (the others partition
+    # it, as benchmarks/exp9_faults.py finds link by link)
+    fcalls = [("submit", "submit", dict(g=g9)),
+              ("mark_failed_proc", "mark_failed", dict(proc=hot)),
+              ("degrade_link", "degrade", dict(link="l3", factor=2.0)),
+              ("mark_failed_link", "mark_failed", dict(link="l8")),
+              ("degrade_task", "degrade", dict(task=sink, factor=2.0)),
+              ("restore_proc", "restore", dict(proc=hot))]
+    cu9 = Scheduler(tg9, policy=EXP9_POLICY)
+    sc9 = Scheduler(tg9, policy=EXP9_POLICY, backend="scalar")
+    fault_rows = {}
+
+    def fault_path():
+        out = []
+        for call in fcalls:
+            (res,) = timed_calls(cu9, [call])
+            (ref_res,) = timed_calls(sc9, [call])
+            out.append((res, ref_res, cu9.faults))
+        return out
+
+    for (name, got, wall, launches, timing), (_, want, swall, _, _), spec \
+            in drive("exp9_faults", fault_path):
+        same_plan(f"exp9 {name}", got, want)
+        fresh = Scheduler(tg9, policy=dataclasses.replace(
+            EXP9_POLICY, period=got.period), faults=spec_faults(spec)
+        ).submit(got.graph)
+        same_plan(f"exp9 {name} against a fresh session", got, fresh)
+        assert schedule_violations(got.schedule, spec) == []
+        fault_rows[name] = {
+            "wall_s": wall, "scalar_wall_s": swall,
+            "sched_plan_kernel": launches, "makespan": got.makespan,
+            "invalidated_by_fault": got.replay.invalidated_by_fault,
+            "replay": same_replay(f"exp9 {name}", got, want),
+            "faults": spec.describe(), "timing_s": timing}
+    return {"phase": "main_faults", "paper_drill": {
+                "healthy": healthy.makespan, "proc2_down": failed.makespan,
+                "invalidated_by_fault": failed.replay.invalidated_by_fault},
+            "exp9": {"P": tg9.n_procs, "n": g9.n, "hot_proc": hot,
+                     "calls": fault_rows},
+            "launches": {k: paths[k]
+                         for k in ("paper_faults", "exp9_faults")}}
+
+
+def phase_service(drive, paths) -> dict:
+    """The scheduler service on the card: the exp10 trace with coalescing
+    on and off; every tenant's final fleet held to a scalar submit_many on
+    the final state."""
+    tg10, tenants = exp10_trace()
+    svc_runs = {}
+    for coalesce in (True, False):
+        svc = SchedulerService(tg10, EXP9_POLICY, workers=4,
+                               coalesce=coalesce)
+        t1 = time.perf_counter()
+        finals = drive(f"service_{'on' if coalesce else 'off'}",
+                       lambda: asyncio.run(drive_service(svc, tenants)))
+        wall = time.perf_counter() - t1
+        svc.close()
+        svc_runs[coalesce] = (svc, finals, wall)
+    (svc_on, fin_on, wall_on), (svc_off, fin_off, _) = \
+        svc_runs[True], svc_runs[False]
+    assert fin_on == fin_off, "coalesced and uncoalesced views differ"
+    for name, graphs, _ in tenants:
+        for svc in (svc_on, svc_off):
+            t = svc._tenants[name]
+            view = fin_on[(name, graphs[0].name)]
+            want = Scheduler(t.topology, backend="scalar",
+                             policy=dataclasses.replace(
+                                 EXP9_POLICY, period=view["period"]),
+                             faults=t.fault_records).submit_many(
+                list(t.graphs.values()))
+            assert t.fleet.backend == "cuda" and t.fleet.fallback is None
+            for f in ("proc", "start", "finish"):
+                assert np.array_equal(getattr(t.fleet.schedule, f),
+                                      getattr(want.schedule, f)), (name, f)
+            assert t.fleet.schedule.messages == want.schedule.messages
+    st_on, st_off = svc_on.stats, svc_off.stats
+    return {"phase": "main_service", "tenants": len(tenants),
+            "graphs_per_tenant": 4, "n": 28, "P": tg10.n_procs,
+            "requests": st_on.requests, "wall_s": wall_on,
+            "requests_per_s": st_on.requests / wall_on,
+            "mean_replan_latency_s": st_on.mean_replan_latency_s(),
+            "p99_replan_latency_s": st_on.p99_replan_latency_s(),
+            "replans_coalesced": st_on.replans,
+            "replans_uncoalesced": st_off.replans,
+            "uncoalesced": {
+                "wall_s": svc_runs[False][2],
+                "mean_replan_latency_s": st_off.mean_replan_latency_s(),
+                "p99_replan_latency_s": st_off.p99_replan_latency_s()},
+            "launches": {k: paths[k]
+                         for k in ("service_on", "service_off")}}
 
 
 def main() -> int:
@@ -643,14 +1000,21 @@ def main() -> int:
     assert plan7.backend == "cuda"
     assert schedule_violations(plan7.schedule) == []
     # against the port's host reference: every grid makespan, the best
-    # schedule, and the full decision traces of four more alphas
+    # schedule, and the full decision traces of four more alphas, those
+    # the session keeps nearest 0, 0.75, 1.5 and 2.25 (it keeps the
+    # traces of the alphas the host loop simulates, as the reference does)
     t1 = time.perf_counter()
-    ref = Scheduler(tg7, backend="scalar").submit(g7, EXP7_POLICY)
+    ref_sched = Scheduler(tg7, backend="scalar")
+    ref = ref_sched.submit(g7, EXP7_POLICY)
     scalar_s = time.perf_counter() - t1
     assert np.array_equal(plan7.sweep.alphas, ref.sweep.alphas)
     assert np.array_equal(plan7.sweep.makespans, ref.sweep.makespans)
     assert plan7.best_alpha == ref.best_alpha
-    checked = [plan7.best_alpha, 0.0, 0.75, 1.5, 2.25]
+    kept = sorted(sess.traces[EXP7_POLICY])
+    assert plan7.best_alpha in kept and kept == sorted(
+        ref_sched._sessions[id(g7)].traces[EXP7_POLICY])
+    checked = [plan7.best_alpha] + [min(kept, key=lambda a: abs(a - x))
+                                    for x in (0.0, 0.75, 1.5, 2.25)]
     q7s = sess.queue_for(tg7, EXP7_POLICY)
     inst_s = CompiledInstance(g7, tg7, rank=sess.rank, device="cpu")
     for a in checked:
@@ -687,6 +1051,11 @@ def main() -> int:
           "per_wave_schedule_s": per_wave_s,
           "bit_identical_alphas": checked, "launches": {
               k: paths[k] for k in ("exp7_submit", "exp7_per_wave")}})
+
+    upd = phase_update(drive, paths, g7, tg7, q7s)
+    emit(upd)
+    emit(phase_faults(drive, paths, gp, tgp))
+    emit(phase_service(drive, paths))
 
     # ---- 5. the attention entry point at published widths: all cases
     # in one path, then each output held against the plain version
@@ -786,7 +1155,9 @@ def main() -> int:
     # the kernels line carries each kernel's count on its path and, for
     # the attention and scan kernels, the numbers of the first (bf16)
     # case at the widths above
-    for name in ("paper_submit", "exp7_submit"):
+    plan_paths = ("paper_submit", "exp7_submit", "exp7_update",
+                  "paper_faults", "exp9_faults", "service_on", "service_off")
+    for name in plan_paths:
         assert paths[name]["sched_plan_kernel"] > 0, (name, paths[name])
         assert paths[name]["sched_wave_kernel"] == 0, (name, paths[name])
     assert paths["exp7_submit"]["sched_plan_kernel"] == 1, paths
@@ -817,9 +1188,17 @@ def main() -> int:
          "library_ms": None},
         {"name": "sched_plan_kernel", "route": "cuda", "source": src,
          "replaces": "src/repro/core/backends/pallas.py:396",
-         "path": "Scheduler.submit, exp7",
-         "launches": paths["exp7_submit"]["sched_plan_kernel"],
-         "max_abs_err": max(e_p_paper, e_p7), "ms": k2_ms,
+         "path": "Scheduler.submit, exp7; Scheduler.update and "
+                 "probe_update, exp7; mark_failed, degrade and restore, "
+                 "paper and exp9; SchedulerService, exp10 (coalescing on "
+                 "and off)",
+         "launches": sum(paths[k]["sched_plan_kernel"]
+                         for k in plan_paths if k != "paper_submit"),
+         "launches_by_path": {k: paths[k]["sched_plan_kernel"]
+                              for k in plan_paths if k != "paper_submit"},
+         "max_abs_err": max(e_p_paper, e_p7,
+                            upd["resumed_vs_plain"]["max_abs_err"]),
+         "ms": k2_ms,
          "plain_ms": k2_plain_ms, "bound_ms": k2_bound, "bound_by": k2_by,
          "library_ms": None},
         {"name": "flash_attention_kernel", "route": "cuda",

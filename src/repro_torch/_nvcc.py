@@ -9,14 +9,22 @@ flag builds anew and an unchanged one is loaded as it is.  The output is
 written under a temporary name and renamed into place, so a process
 never loads a half-written library; nvcc's output (ptxas's registers and
 spills) is kept beside it, so a library loaded as it is still reports
-them.  A missing ``nvcc`` or a failed build raises ``RuntimeError``;
-nothing falls back.
+them.  A missing ``nvcc`` or a failed build raises :class:`KernelError`
+(a ``RuntimeError``); nothing falls back.
 
 Each library has a plain C interface; the caller sets each function's
 ``argtypes`` (``ctypes.c_void_p`` for pointers and the stream,
 ``ctypes.c_int`` for ints) on the returned handle.  A wrapper launches
-only on CUDA tensors (:func:`on_cuda`) and raises when the launch
-function returns a CUDA error (:func:`raise_on`).
+only on CUDA tensors (:func:`on_cuda`), raises a :class:`KernelError`
+when the launch function returns a CUDA error (:func:`raise_on`) and
+counts the launch with :func:`count_launch`.
+
+Threads: the scheduler service runs each worker lane on its own thread,
+so several threads may build, load and launch at once.  :func:`build`
+holds one lock per library name, so a library is compiled once while
+other libraries build in parallel; each kernel module guards its loaded
+handle with its own lock (:class:`LibraryCache`); :func:`count_launch`
+increments the launch counters under one lock.
 """
 from __future__ import annotations
 
@@ -25,14 +33,15 @@ import dataclasses
 import hashlib
 import os
 import subprocess
+import threading
 import time
 from pathlib import Path
-from typing import Sequence, Tuple
+from typing import Callable, Dict, Generic, Optional, Sequence, Tuple, TypeVar
 
 import torch
 
-__all__ = ["BASE_FLAGS", "BUILD_DIR", "Library", "build", "on_cuda",
-           "raise_on"]
+__all__ = ["BASE_FLAGS", "BUILD_DIR", "KernelError", "Library",
+           "LibraryCache", "build", "count_launch", "on_cuda", "raise_on"]
 
 # flags of every library; a library adds its own (e.g. ``--fmad=false``)
 BASE_FLAGS: Tuple[str, ...] = (
@@ -40,6 +49,11 @@ BASE_FLAGS: Tuple[str, ...] = (
     "-shared", "-Xcompiler", "-fPIC", "-Xptxas=-v")
 # the checkout's root (src/repro_torch/_nvcc.py -> 2 up)
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "repro_torch"
+
+
+class KernelError(RuntimeError):
+    """A kernel library that could not be built, or a launch that
+    returned a CUDA error."""
 
 
 @dataclasses.dataclass
@@ -53,10 +67,26 @@ class Library:
                               # kept beside the library as lib*.log
 
 
+# one lock per library name (made under _LOCKS_LOCK), so that two threads
+# never write one library's temporary file at once
+_BUILD_LOCKS: Dict[str, threading.Lock] = {}
+_LOCKS_LOCK = threading.Lock()
+# every kernel module's launch counters
+_COUNT_LOCK = threading.Lock()
+
+
 def build(name: str, sources: Sequence[Path],
           flags: Sequence[str]) -> Library:
     """Compile ``sources`` with ``flags`` into ``lib<name>_<hash>.so``
     (once per hash of the sources and flags) and load it."""
+    with _LOCKS_LOCK:
+        lock = _BUILD_LOCKS.setdefault(name, threading.Lock())
+    with lock:
+        return _build(name, sources, flags)
+
+
+def _build(name: str, sources: Sequence[Path],
+           flags: Sequence[str]) -> Library:
     from torch.utils.cpp_extension import CUDA_HOME
     flags = tuple(flags)
     h = hashlib.sha256(" ".join(flags).encode())
@@ -71,8 +101,8 @@ def build(name: str, sources: Sequence[Path],
     else:
         nvcc = None if CUDA_HOME is None else Path(CUDA_HOME) / "bin" / "nvcc"
         if nvcc is None or not nvcc.exists():
-            raise RuntimeError(f"nvcc not found (CUDA_HOME is {CUDA_HOME!r}):"
-                               f" cannot build {name}")
+            raise KernelError(f"nvcc not found (CUDA_HOME is {CUDA_HOME!r}):"
+                              f" cannot build {name}")
         BUILD_DIR.mkdir(parents=True, exist_ok=True)
         tmp = out.with_name(f"{out.stem}.{os.getpid()}.tmp.so")
         t0 = time.perf_counter()
@@ -82,13 +112,43 @@ def build(name: str, sources: Sequence[Path],
         seconds = time.perf_counter() - t0
         log = res.stderr + res.stdout
         if res.returncode != 0:
-            raise RuntimeError(f"nvcc failed on {name} ({res.returncode}):\n"
-                               f"{log}")
+            raise KernelError(f"nvcc failed on {name} ({res.returncode}):\n"
+                              f"{log}")
         tmp_log = tmp.with_suffix(".log")
         tmp_log.write_text(log)
         os.replace(tmp_log, log_path)
         os.replace(tmp, out)
     return Library(name, ctypes.CDLL(str(out)), out, flags, seconds, log)
+
+
+T = TypeVar("T")
+
+
+class LibraryCache(Generic[T]):
+    """A kernel module's loaded library: built by ``load`` on the first
+    :meth:`get` of any thread, the same handle for every later one.  A
+    failed build raises to its caller and leaves the cache empty."""
+
+    def __init__(self, load: Callable[[], T]) -> None:
+        self._load = load
+        self._value: Optional[T] = None
+        self._lock = threading.Lock()
+
+    def get(self) -> T:
+        value = self._value
+        if value is None:
+            with self._lock:
+                if self._value is None:
+                    self._value = self._load()
+                value = self._value
+        return value
+
+
+def count_launch(*counters: Tuple[Dict[str, int], str]) -> None:
+    """Add one to each ``(counts, key)`` under the counters' lock."""
+    with _COUNT_LOCK:
+        for counts, key in counters:
+            counts[key] += 1
 
 
 def on_cuda(tensors: Sequence[torch.Tensor]) -> bool:
@@ -108,4 +168,4 @@ def on_cuda(tensors: Sequence[torch.Tensor]) -> bool:
 
 def raise_on(rc: int, kernel: str) -> None:
     if rc != 0:
-        raise RuntimeError(f"{kernel} launch failed with CUDA error {rc}")
+        raise KernelError(f"{kernel} launch failed with CUDA error {rc}")

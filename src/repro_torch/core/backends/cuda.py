@@ -124,21 +124,12 @@ class _Library:
         return self.built.lib
 
 
-_LIB: Optional[_Library] = None
-
 _P = ctypes.c_void_p
 _I = ctypes.c_int
 _D = ctypes.c_double
 
 
-def build_library() -> _Library:
-    """Build (once per source hash) and load the kernels' shared library.
-
-    Raises ``RuntimeError`` when ``nvcc`` is missing or the build fails.
-    """
-    global _LIB
-    if _LIB is not None:
-        return _LIB
+def _load() -> _Library:
     built = _nvcc.build("sched_kernels", [SOURCE], NVCC_FLAGS)
     lib = built.lib
     lib.sched_smem.argtypes = [_I] * 7
@@ -149,8 +140,20 @@ def build_library() -> _Library:
     lib.sched_plan_launch.argtypes = (
         [_P] * 13 + [_D] + [_P] * 22 + [_I] * 12 + [_P])
     lib.sched_plan_launch.restype = _I
-    _LIB = _Library(built)
-    return _LIB
+    return _Library(built)
+
+
+_LIB = _nvcc.LibraryCache(_load)
+
+
+def build_library() -> _Library:
+    """Build (once per source hash) and load the kernels' shared library,
+    the same handle for every thread.
+
+    Raises :class:`~repro_torch._nvcc.KernelError` when ``nvcc`` is
+    missing or the build fails.
+    """
+    return _LIB.get()
 
 
 # ----------------------------------------------------------------------
@@ -517,7 +520,7 @@ def sched_wave(T: RouteTables, task: torch.Tensor, real: torch.Tensor,
             *(t.data_ptr() for t in state + st + out.tensors()),
             B, K, T.R, T.H, P, L, lay.chunk, stream)
     _raise_on(rc, "sched_wave_kernel")
-    LAUNCHES["sched_wave_kernel"] += 1
+    _nvcc.count_launch((LAUNCHES, "sched_wave_kernel"))
     return out, st
 
 
@@ -577,7 +580,7 @@ def sched_plan(T: RouteTables, task: torch.Tensor, real: torch.Tensor,
             A, W, B, K, T.R, T.H, P, L, n, T.E, lay.chunk, lay.rows,
             stream)
     _raise_on(rc, "sched_plan_kernel")
-    LAUNCHES["sched_plan_kernel"] += 1
+    _nvcc.count_launch((LAUNCHES, "sched_plan_kernel"))
     return out, st, aft, proc
 
 

@@ -18,8 +18,8 @@
 //     head, b): warpgroups 0 and 1 each own 64 query rows and compute,
 //     warpgroup 2 is the producer; setmaxnreg moves registers from the
 //     producer (24) to the consumers (240);
-//   * one producer thread loads Q once and K, V tiles of BN keys (128 at
-//     d <= 80, 64 at d = 96 and 128) with TMA (cp.async.bulk.tensor, 3-D
+//   * one producer thread loads Q once and K, V tiles of BN = 64 keys
+//     with TMA (cp.async.bulk.tensor, 3-D
 //     maps (d, S, B*H) so a ragged tile reads zeros and never the next
 //     head's rows) into rings of ST = 2 stages, K and V each with their
 //     own mbarrier full / empty pair per stage, so a K stage is refilled
@@ -31,17 +31,28 @@
 //     f32 registers; the scale is applied after the product, folded with
 //     log2(e) into ex2; the mask is applied on S's register layout on
 //     the tiles that need it (ragged last tile, diagonal tile);
-//   * P is rounded to bf16 in registers and is the register A operand of
-//     O += P.V, wgmma m64n{d}k16 with V as B in its stored key-major
-//     layout (wgmma's transpose bit), so P never touches shared memory;
+//   * P is split in registers into a bf16 high part p_hi = bf16(p) and a
+//     bf16 residual p_lo = bf16(p - p_hi) (the subtraction is exact), and
+//     O += P.V issues two register-A wgmma m64n{d}k16 a k-step, p_hi.V
+//     and p_lo.V, into the same f32 accumulators, with V as B in its
+//     stored key-major layout (wgmma's transpose bit).  P's relative error
+//     drops from 2^-9 (P rounded to bf16) to about 2^-17, so the products
+//     match the plain version's f32 P.V from bf16 V, as the TPU kernel's
+//     do; P never touches shared memory.  The two parts are written over
+//     the f32 scores they come from, the eight scores of a k-step
+//     becoming p_hi's four registers then p_lo's four, so each operand
+//     is an aligned quad of S's registers and P.V holds no register
+//     array beyond S and O;
 //   * the two consumer warpgroups take turns on the tensor cores (named
 //     barriers 1 and 2, FlashAttention-3's ping-pong): in its turn a
 //     warpgroup issues P.V of tile i-1, then Q.K^T of tile i, and hands
 //     the turn over; it runs tile i's softmax while the other one's
 //     products run.  P.V and Q.K^T are never in flight together: with
 //     both, ptxas serialises every wgmma at d = 96 and 128 ("insufficient
-//     register resources", C7512), and BN = 64 there keeps S + P + O
-//     (BN / 2 + BN / 4 + d / 2 registers) small enough for the turn;
+//     register resources", C7512).  BN = 64 keeps S or P and O (BN / 2 +
+//     d / 2 registers) small enough for the turn; tiles of 128 keys at
+//     d <= 80 serialised the 16 wgmma of P's two parts (C7512) and ran
+//     10-17 % slower than 64;
 //   * l is summed from the f32 P per thread and reduced over the quad
 //     once at the end; O is divided and stored from registers, rows >= S
 //     skipped.
@@ -414,9 +425,7 @@ int dispatch(const void* q, const void* k, const void* v, void* o, int B,
 
 // ----------------------------------------------------- bf16 tensor-core path
 constexpr int BM = 128;           // query rows per block: 2 x 64
-// keys per kv tile: 128, or 64 where S, P and O would not fit in registers
-template <int D>
-__host__ __device__ constexpr int kv_tile() { return D <= 80 ? 128 : 64; }
+constexpr int BN = 64;            // keys per kv tile
 constexpr int ST = 2;             // stages of the K/V ring
 constexpr int NTW = 384;          // 2 consumer warpgroups + 1 producer
 constexpr int BOX = 128;          // bytes of one swizzled row box (64 bf16)
@@ -529,9 +538,15 @@ __device__ __forceinline__ void named_arrive(int id) {
   asm volatile("bar.arrive %0, 256;\n" ::"r"(id) : "memory");
 }
 
-__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
-  __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
-  return *reinterpret_cast<uint32_t*>(&v);
+// the pair (x0, x1) of f32 as two packed bf16 pairs: the high part
+// bf16(x) and the residual bf16(x - bf16(x)); x - bf16(x) is exact in f32
+__device__ __forceinline__ void split_bf16(float x0, float x1, uint32_t& hi,
+                                           uint32_t& lo) {
+  const __nv_bfloat162 h = __floats2bfloat162_rn(x0, x1);
+  const float2 hf = __bfloat1622float2(h);
+  const __nv_bfloat162 r = __floats2bfloat162_rn(x0 - hf.x, x1 - hf.y);
+  hi = *reinterpret_cast<const uint32_t*>(&h);
+  lo = *reinterpret_cast<const uint32_t*>(&r);
 }
 
 // d (+)= A . B, m64nNk16, bf16 in, f32 accumulators.  Accumulator i of a
@@ -575,8 +590,6 @@ __device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
   }
 FA_WGMMA_SS(wgmma_ss_n64_zero, 64, FA_SET, 0, "%32, %33")
 FA_WGMMA_SS(wgmma_ss_n64, 64, FA_ADD, 1, "%32, %33")
-FA_WGMMA_SS(wgmma_ss_n128_zero, 128, FA_SET, 0, "%64, %65")
-FA_WGMMA_SS(wgmma_ss_n128, 128, FA_ADD, 1, "%64, %65")
 
 // d += A . B with A (64 x 16 bf16) in registers, B MN-major in shared
 // memory (transpose bit set), m64nNk16; OPS names the asm operands of A's
@@ -602,7 +615,6 @@ FA_WGMMA_RS(128, "{%64, %65, %66, %67}, %68")
 
 template <int D>
 constexpr int wgmma_smem_bytes() {
-  constexpr int BN = kv_tile<D>();
   // 1 KB of alignment slack, Q (BM rows), ST stages of K and V (BN rows),
   // each row cut into (D + 63) / 64 boxes of 128 bytes, then 1 + 4 ST
   // mbarriers
@@ -611,7 +623,7 @@ constexpr int wgmma_smem_bytes() {
 
 // S = Q . K^T for one warpgroup's 64 rows and one kv tile: d / 16
 // k-steps of 32 bytes inside the 128-byte boxes, both operands K-major
-template <int D, int BN = kv_tile<D>()>
+template <int D>
 __device__ __forceinline__ void issue_qk(float (&sc)[BN / 2], uint32_t qa,
                                          uint32_t kt) {
 #pragma unroll
@@ -619,25 +631,31 @@ __device__ __forceinline__ void issue_qk(float (&sc)[BN / 2], uint32_t qa,
     const uint32_t off = (kk % 4) * 32;          // inside the box
     const uint64_t da = sw128_desc(qa + (kk / 4) * BM * BOX + off, 16, 8 * BOX);
     const uint64_t db = sw128_desc(kt + (kk / 4) * BN * BOX + off, 16, 8 * BOX);
-    if constexpr (BN == 128) {
-      if (kk == 0) wgmma_ss_n128_zero(sc, da, db);
-      else wgmma_ss_n128(sc, da, db);
-    } else {
-      if (kk == 0) wgmma_ss_n64_zero(sc, da, db);
-      else wgmma_ss_n64(sc, da, db);
-    }
+    if (kk == 0) wgmma_ss_n64_zero(sc, da, db);
+    else wgmma_ss_n64(sc, da, db);
   }
 }
 
 // O += P . V: V's BN x D tile is the MN-major B operand, its 64-column
-// boxes BN * 128 bytes apart
-template <int D, int BN = kv_tile<D>()>
+// boxes BN * 128 bytes apart.  ps holds P as rescale_and_split left it:
+// k-step kk adds p_hi . V (registers 8 kk .. 8 kk + 3) and p_lo . V
+// (registers 8 kk + 4 .. 8 kk + 7)
+template <int D>
 __device__ __forceinline__ void issue_pv(float (&acc)[D / 2],
-                                         uint32_t (&pf)[BN / 16][4],
+                                         const float (&ps)[BN / 2],
                                          uint32_t vt) {
 #pragma unroll
-  for (int kk = 0; kk < BN / 16; ++kk)
-    wgmma_rs<D>(acc, pf[kk], sw128_desc(vt + kk * 16 * BOX, BN * BOX, 8 * BOX));
+  for (int kk = 0; kk < BN / 16; ++kk) {
+    const uint64_t db = sw128_desc(vt + kk * 16 * BOX, BN * BOX, 8 * BOX);
+    uint32_t hi[4], lo[4];
+#pragma unroll
+    for (int f = 0; f < 4; ++f) {
+      hi[f] = __float_as_uint(ps[8 * kk + f]);
+      lo[f] = __float_as_uint(ps[8 * kk + 4 + f]);
+    }
+    wgmma_rs<D>(acc, hi, db);
+    wgmma_rs<D>(acc, lo, db);
+  }
 }
 
 // The softmax of one tile on S's register layout, in the log2 domain:
@@ -645,7 +663,6 @@ __device__ __forceinline__ void issue_pv(float (&acc)[D / 2],
 // r0 + 8, overwrites sc with P = 2^(s - m) in f32, adds P's row sums to
 // the thread's partial l0, l1, and returns the factors al0, al1 that
 // rescale the accumulator rows to the new maxima.
-template <int BN>
 __device__ __forceinline__ void softmax_tile(float (&sc)[BN / 2], bool edge,
                                              int k0, int r0, int cq, int S,
                                              int causal, float scale_log2,
@@ -691,14 +708,15 @@ __device__ __forceinline__ void softmax_tile(float (&sc)[BN / 2], bool edge,
   l1 = l1 * al1 + rs1;
 }
 
-// rescales the accumulator rows, then rounds P to bf16 as the register A
-// fragments of P . V: fragment kk holds rows (r0, r0 + 8) x keys
-// 16 kk .. 16 kk + 15, i.e. accumulators 8 kk .. 8 kk + 7 of S
-template <int D, int BN = kv_tile<D>()>
-__device__ __forceinline__ void rescale_and_pack(float (&acc)[D / 2],
-                                                 float al0, float al1,
-                                                 const float (&sc)[BN / 2],
-                                                 uint32_t (&pf)[BN / 16][4]) {
+// rescales the accumulator rows, then splits P in place into the
+// register A fragments of P . V.  Fragment register f of k-step kk packs
+// the pair of S accumulators 8 kk + 2 f, 8 kk + 2 f + 1 (rows r0, r0 + 8
+// x keys 16 kk .. 16 kk + 15 over the four f): the pair's p_hi goes to
+// register 8 kk + f and its p_lo to register 8 kk + 4 + f
+template <int D>
+__device__ __forceinline__ void rescale_and_split(float (&acc)[D / 2],
+                                                  float al0, float al1,
+                                                  float (&sc)[BN / 2]) {
 #pragma unroll
   for (int j = 0; j < D / 8; ++j) {
     acc[4 * j] *= al0;
@@ -707,10 +725,17 @@ __device__ __forceinline__ void rescale_and_pack(float (&acc)[D / 2],
     acc[4 * j + 3] *= al1;
   }
 #pragma unroll
-  for (int kk = 0; kk < BN / 16; ++kk)
+  for (int kk = 0; kk < BN / 16; ++kk) {
+    uint32_t hi[4], lo[4];
 #pragma unroll
     for (int f = 0; f < 4; ++f)
-      pf[kk][f] = pack_bf16(sc[8 * kk + 2 * f], sc[8 * kk + 2 * f + 1]);
+      split_bf16(sc[8 * kk + 2 * f], sc[8 * kk + 2 * f + 1], hi[f], lo[f]);
+#pragma unroll
+    for (int f = 0; f < 4; ++f) {
+      sc[8 * kk + f] = __uint_as_float(hi[f]);
+      sc[8 * kk + 4 + f] = __uint_as_float(lo[f]);
+    }
+  }
 }
 
 template <int D>
@@ -721,7 +746,6 @@ flash_attention_wgmma_kernel(const __grid_constant__ CUtensorMap tq,
                              __nv_bfloat16* __restrict__ o, int B, int Hq,
                              int Hkv, int S, int causal, float scale_log2) {
   static_assert(D % 16 == 0 && D <= 128, "head dim: a multiple of 16, <= 128");
-  constexpr int BN = kv_tile<D>();
   constexpr int NC = (D + 63) / 64;      // 128-byte boxes per row
   constexpr int STAGE = NC * BN * BOX;   // bytes of one K or V tile
   extern __shared__ uint8_t smem_raw[];
@@ -797,7 +821,6 @@ flash_attention_wgmma_kernel(const __grid_constant__ CUtensorMap tq,
     for (int i = 0; i < D / 2; ++i) acc[i] = 0.f;
     float m0 = NEG_INF, m1 = NEG_INF, l0 = 0.f, l1 = 0.f, al0, al1;
     float sc[BN / 2];
-    uint32_t pf[BN / 16][4];
     // turn w is barrier 1 + w: warpgroup w syncs on it, the other one
     // arrives; warpgroup 0 goes first, and warpgroup 1 does not arrive
     // after its last turn, so every arrival is consumed
@@ -814,9 +837,9 @@ flash_attention_wgmma_kernel(const __grid_constant__ CUtensorMap tq,
     wgmma_wait<0>();
     pin(sc);
     mbar_arrive(bar(K_EMPTY, 0));
-    softmax_tile<BN>(sc, BN > S || (causal && BN - 1 > qmin), 0, r0, cq, S,
+    softmax_tile(sc, BN > S || (causal && BN - 1 > qmin), 0, r0, cq, S,
                  causal, scale_log2, m0, m1, l0, l1, al0, al1);
-    rescale_and_pack<D>(acc, al0, al1, sc, pf);
+    rescale_and_split<D>(acc, al0, al1, sc);
 
     // turn i: O += P . V of tile i-1, then S = Q . K^T of tile i
     for (int i = 1; i < n_kv; ++i) {
@@ -825,15 +848,13 @@ flash_attention_wgmma_kernel(const __grid_constant__ CUtensorMap tq,
       mbar_wait(bar(K_FULL, s), (i / ST) & 1);
       named_sync(1 + wg);
       pin(acc);
-#pragma unroll
-      for (int kk = 0; kk < BN / 16; ++kk) pin(pf[kk]);
+      pin(sc);
       wgmma_fence();
-      issue_pv<D>(acc, pf, vs + sp * STAGE);
+      issue_pv<D>(acc, sc, vs + sp * STAGE);
       wgmma_commit();
       wgmma_wait<0>();
       pin(acc);
-#pragma unroll
-      for (int kk = 0; kk < BN / 16; ++kk) pin(pf[kk]);
+      pin(sc);
       issue_qk<D>(sc, qa, ks + s * STAGE);
       wgmma_commit();
       named_arrive(2 - wg);
@@ -842,9 +863,9 @@ flash_attention_wgmma_kernel(const __grid_constant__ CUtensorMap tq,
       pin(sc);
       mbar_arrive(bar(K_EMPTY, s));
       const int k0 = i * BN;
-      softmax_tile<BN>(sc, k0 + BN > S || (causal && k0 + BN - 1 > qmin), k0,
+      softmax_tile(sc, k0 + BN > S || (causal && k0 + BN - 1 > qmin), k0,
                    r0, cq, S, causal, scale_log2, m0, m1, l0, l1, al0, al1);
-      rescale_and_pack<D>(acc, al0, al1, sc, pf);
+      rescale_and_split<D>(acc, al0, al1, sc);
     }
 
     // last turn: O += P . V of the last tile
@@ -852,15 +873,13 @@ flash_attention_wgmma_kernel(const __grid_constant__ CUtensorMap tq,
     mbar_wait(bar(V_FULL, sl), ((n_kv - 1) / ST) & 1);
     named_sync(1 + wg);
     pin(acc);
-#pragma unroll
-    for (int kk = 0; kk < BN / 16; ++kk) pin(pf[kk]);
+    pin(sc);
     wgmma_fence();
-    issue_pv<D>(acc, pf, vs + sl * STAGE);
+    issue_pv<D>(acc, sc, vs + sl * STAGE);
     wgmma_commit();
     wgmma_wait<0>();
     pin(acc);
-#pragma unroll
-    for (int kk = 0; kk < BN / 16; ++kk) pin(pf[kk]);
+    pin(sc);
     if (wg == 0) named_arrive(2);
     mbar_arrive(bar(V_EMPTY, sl));
 
@@ -925,17 +944,19 @@ bool encode_map(CUtensorMap* map, const void* ptr, int D, int S, int BH,
 template <int D>
 int launch_wgmma(const void* q, const void* k, const void* v, void* o, int B,
                  int Hq, int Hkv, int S, int causal, cudaStream_t stream) {
-  constexpr int BN = kv_tile<D>();
-  CUtensorMap tq, tk, tv;
-  if (!encode_map(&tq, q, D, S, B * Hq, BM) ||
-      !encode_map(&tk, k, D, S, B * Hkv, BN) ||
-      !encode_map(&tv, v, D, S, B * Hkv, BN))
-    return (int)cudaErrorInvalidValue;
+  // the runtime call first: it makes the device's primary context current
+  // on the calling thread, which the driver's tensor-map encode needs (a
+  // thread that has made no runtime call yet has none)
   const int smem = wgmma_smem_bytes<D>();
   auto kern = flash_attention_wgmma_kernel<D>;
   cudaError_t e = cudaFuncSetAttribute(
       kern, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (e != cudaSuccess) return (int)e;
+  CUtensorMap tq, tk, tv;
+  if (!encode_map(&tq, q, D, S, B * Hq, BM) ||
+      !encode_map(&tk, k, D, S, B * Hkv, BN) ||
+      !encode_map(&tv, v, D, S, B * Hkv, BN))
+    return (int)cudaErrorInvalidValue;
   const long long blocks = (long long)((S + BM - 1) / BM) * Hq * B;
   if (blocks > 0x7fffffffLL) return (int)cudaErrorInvalidValue;
   const float scale_log2 = (float)(1.4426950408889634 / sqrt((double)D));

@@ -8,7 +8,9 @@ kernels pick their own.  The launch function chooses the kernel by the
 inputs' dtype:
 
 * bfloat16 runs on the tensor cores (wgmma, TMA, 128 query rows by 64
-  or 128 keys), bounded by the bf16 tensor-core rate;
+  keys), bounded by the bf16 tensor-core rate; P.V is two bf16
+  products, P's high part and its residual, so P keeps about 17 bits
+  and the products match the f32 P.V of the plain version;
 * float32 runs on the CUDA cores, since TF32 would miss the f32 path's
   1e-5 tolerance, bounded by the FP32 FMA rate: 8 warps a block (one
   block an SM), 128 query rows by 64 keys, each warp owning 16 rows so
@@ -29,7 +31,7 @@ from __future__ import annotations
 
 import ctypes
 from pathlib import Path
-from typing import Dict, Optional
+from typing import Dict
 
 import torch
 
@@ -49,7 +51,6 @@ LAUNCHES: Dict[str, int] = {"flash_attention_kernel": 0}
 # the kernel each launch went to: bf16 -> tensor cores, f32 -> CUDA cores
 VARIANT_LAUNCHES: Dict[str, int] = {"wgmma_bf16": 0, "fma_f32": 0}
 
-_LIB: Optional[_nvcc.Library] = None
 _P = ctypes.c_void_p
 _I = ctypes.c_int
 
@@ -60,16 +61,21 @@ def reset_launches() -> None:
             counts[k] = 0
 
 
+def _load() -> _nvcc.Library:
+    built = _nvcc.build("flash_attention", [SOURCE], NVCC_FLAGS)
+    fn = built.lib.flash_attention_launch
+    fn.argtypes = [_P] * 4 + [_I] * 7 + [_P]
+    fn.restype = _I
+    return built
+
+
+_LIB = _nvcc.LibraryCache(_load)
+
+
 def build_library() -> _nvcc.Library:
-    """Build (once per source hash) and load the kernel's library."""
-    global _LIB
-    if _LIB is None:
-        built = _nvcc.build("flash_attention", [SOURCE], NVCC_FLAGS)
-        fn = built.lib.flash_attention_launch
-        fn.argtypes = [_P] * 4 + [_I] * 7 + [_P]
-        fn.restype = _I
-        _LIB = built
-    return _LIB
+    """Build (once per source hash) and load the kernel's library; the
+    same handle for every thread."""
+    return _LIB.get()
 
 
 def _check(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> None:
@@ -112,6 +118,6 @@ def flash_attention_kernel(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
             q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), B, Hq,
             k.shape[1], S, d, int(causal), int(bf16), stream)
     _nvcc.raise_on(rc, "flash_attention_kernel")
-    LAUNCHES["flash_attention_kernel"] += 1
-    VARIANT_LAUNCHES["wgmma_bf16" if bf16 else "fma_f32"] += 1
+    _nvcc.count_launch((LAUNCHES, "flash_attention_kernel"),
+                       (VARIANT_LAUNCHES, "wgmma_bf16" if bf16 else "fma_f32"))
     return out

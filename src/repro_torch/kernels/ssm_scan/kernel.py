@@ -24,7 +24,7 @@ from __future__ import annotations
 
 import ctypes
 from pathlib import Path
-from typing import Dict, Optional
+from typing import Dict
 
 import torch
 
@@ -43,7 +43,6 @@ MAX_STATE = 32
 
 LAUNCHES: Dict[str, int] = {"selective_scan_kernel": 0}
 
-_LIB: Optional[_nvcc.Library] = None
 _P = ctypes.c_void_p
 _I = ctypes.c_int
 
@@ -53,16 +52,21 @@ def reset_launches() -> None:
         LAUNCHES[k] = 0
 
 
+def _load() -> _nvcc.Library:
+    built = _nvcc.build("ssm_scan", [SOURCE], NVCC_FLAGS)
+    fn = built.lib.selective_scan_launch
+    fn.argtypes = [_P] * 6 + [_I] * 5 + [_P]
+    fn.restype = _I
+    return built
+
+
+_LIB = _nvcc.LibraryCache(_load)
+
+
 def build_library() -> _nvcc.Library:
-    """Build (once per source hash) and load the kernel's library."""
-    global _LIB
-    if _LIB is None:
-        built = _nvcc.build("ssm_scan", [SOURCE], NVCC_FLAGS)
-        fn = built.lib.selective_scan_launch
-        fn.argtypes = [_P] * 6 + [_I] * 5 + [_P]
-        fn.restype = _I
-        _LIB = built
-    return _LIB
+    """Build (once per source hash) and load the kernel's library; the
+    same handle for every thread."""
+    return _LIB.get()
 
 
 def _check(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor,
@@ -105,5 +109,5 @@ def selective_scan_kernel(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor,
             Cm.data_ptr(), y.data_ptr(), B, S, Di, A.shape[1],
             int(x.dtype == torch.bfloat16), stream)
     _nvcc.raise_on(rc, "selective_scan_kernel")
-    LAUNCHES["selective_scan_kernel"] += 1
+    _nvcc.count_launch((LAUNCHES, "selective_scan_kernel"))
     return y

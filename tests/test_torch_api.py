@@ -136,7 +136,9 @@ def test_import_pulls_in_neither_jax_nor_reference():
             "repro_torch.kernels.flash_attention.ref, "
             "repro_torch.kernels.ssm_scan.ops, "
             "repro_torch.kernels.ssm_scan.kernel, "
-            "repro_torch.kernels.ssm_scan.ref\n"
+            "repro_torch.kernels.ssm_scan.ref, repro_torch.service, "
+            "repro_torch.service.__main__, repro_torch.core.metrics, "
+            "repro_torch.core.hsv_cc, repro_torch.core.hvlb_cc\n"
             "bad = sorted(m for m in sys.modules if m == 'repro' or "
             "m.startswith(('repro.', 'jax', 'jaxlib')))\n"
             "print(bad); sys.exit(1 if bad else 0)\n")

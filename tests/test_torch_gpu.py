@@ -294,18 +294,21 @@ def test_flash_attention_kernel_equals_plain_on_card(B, Hq, Hkv, S, d, scale,
     assert _block_rel_rms(out, want) <= RMS_LIMIT[dtype]
 
 
-@pytest.mark.parametrize("B,Hq,Hkv,S,d", [
-    (1, 8, 2, 200, 96), (2, 4, 4, 130, 80), (1, 14, 2, 100, 64),
-    (2, 8, 1, 200, 128), (1, 1, 1, 4096, 128)], ids=str)
+_LARGE_V = [(1, 8, 2, 200, 96), (2, 4, 4, 130, 80), (1, 14, 2, 100, 64),
+            (2, 8, 1, 200, 128), (1, 1, 1, 4096, 128)]
+
+
+@pytest.mark.parametrize("B,Hq,Hkv,S,d", _LARGE_V, ids=str)
 @pytest.mark.parametrize("causal", [True, False])
 def test_flash_attention_bf16_large_v_on_card(B, Hq, Hkv, S, d, causal,
                                               card):
     """q, k and v all scaled by 8.  The output is a weighted mean of v
     rows, so the error of rounding P to bf16 before P.V grows with |v|,
     and where a row's v values cancel it can pass the absolute part of
-    the elementwise bf16 tolerance: the kernel is held instead to the
-    relative limit per row block and to twice the error of SDPA's flash
-    backend, which rounds P to bf16 in the same way."""
+    the elementwise bf16 tolerance: SDPA's flash backend, which rounds P
+    so, misses it.  The kernel is held here to the relative limit per
+    row block and to twice SDPA's error, and by the test below to the
+    elementwise tolerance."""
     rng = np.random.default_rng(0)
     q, k, v = (_normal(rng, (B, h, S, d), torch.bfloat16, card) * 8.0
                for h in (Hq, Hkv, Hkv))
@@ -323,6 +326,25 @@ def test_flash_attention_bf16_large_v_on_card(B, Hq, Hkv, S, d, causal,
     err = float((out.float() - want.float()).abs().max())
     lib_err = float((lib.float() - want.float()).abs().max())
     assert err <= 2 * lib_err, (err, lib_err)
+
+
+@pytest.mark.parametrize("B,Hq,Hkv,S,d", _LARGE_V, ids=str)
+@pytest.mark.parametrize("causal", [True, False])
+def test_flash_attention_bf16_large_v_elementwise_on_card(B, Hq, Hkv, S, d,
+                                                          causal, card):
+    """The same inputs (q, k and v scaled by 8) held to the elementwise
+    bf16 tolerance of tests/test_kernels.py: P.V adds P's bf16 high part
+    and its bf16 residual, so the kernel's products match the plain
+    version's f32 P.V."""
+    rng = np.random.default_rng(0)
+    q, k, v = (_normal(rng, (B, h, S, d), torch.bfloat16, card) * 8.0
+               for h in (Hq, Hkv, Hkv))
+    FA.reset_launches()
+    out = flash_attention(q, k, v, causal=causal)
+    assert FA.VARIANT_LAUNCHES == _variant(torch.bfloat16)
+    want = attention_ref(q, k, v, causal=causal)
+    torch.testing.assert_close(out.float(), want.float(),
+                               **TOL[torch.bfloat16])
 
 
 @pytest.mark.parametrize("B,S,Di,N", [
@@ -454,3 +476,68 @@ def test_rejected_shapes_raise_on_card_without_fallback(card):
     assert FA.LAUNCHES == {"flash_attention_kernel": 0}
     assert FA.VARIANT_LAUNCHES == {"wgmma_bf16": 0, "fma_f32": 0}
     assert SS.LAUNCHES == {"selective_scan_kernel": 0}
+
+
+def test_libraries_build_once_and_count_exactly_across_threads(
+        card, tmp_path, monkeypatch):
+    """Four threads build the three kernel libraries at once into an
+    empty build directory, then launch: each library is compiled once
+    and every thread gets the same handle; a direct ``_nvcc.build`` of
+    one name from every thread compiles once too; every launch is
+    counted."""
+    import threading
+
+    monkeypatch.setattr(_nvcc, "BUILD_DIR", tmp_path)
+    for mod in (K, FA, SS):
+        monkeypatch.setattr(mod, "_LIB", _nvcc.LibraryCache(mod._load))
+    loaders = (K.build_library, FA.build_library, SS.build_library,
+                lambda: _nvcc.build("ssm_scan_direct", [SS.SOURCE],
+                                    SS.NVCC_FLAGS))
+    got = [[None] * len(loaders) for _ in range(4)]
+    errors = []
+    start = threading.Barrier(4)
+    rng = np.random.default_rng(9)
+    q = _normal(rng, (1, 4, 100, 64), torch.bfloat16, card)
+    x = _normal(rng, (1, 64, 32), torch.float32, card)
+    A = -torch.rand((32, 8), device=card) - 0.1
+    Bm = _normal(rng, (1, 64, 8), torch.float32, card)
+    g, tg = port.paper_spg(), port.paper_topology()
+    pol = port.HVLB_CC_B(alpha_max=1.0, alpha_step=0.25, period=150.0)
+    reps = 5
+
+    def work(t):
+        try:
+            start.wait()
+            for b, fn in enumerate(loaders):
+                got[t][b] = fn()
+            for _ in range(reps):
+                flash_attention(q, q, q, causal=True)
+                selective_scan(x, x.abs(), A, Bm, Bm)
+                port.Scheduler(tg).submit(g, pol)
+        except BaseException as e:          # surfaced below
+            errors.append(e)
+
+    for mod in (K, FA, SS):
+        mod.reset_launches()
+    threads = [threading.Thread(target=work, args=(t,)) for t in range(4)]
+    for th in threads:
+        th.start()
+    for th in threads:
+        th.join(timeout=600)
+    assert not any(th.is_alive() for th in threads)
+    torch.cuda.synchronize()
+    assert not errors, errors
+    for b in range(len(loaders)):
+        libs = [got[t][b] for t in range(4)]
+        if b < 3:
+            assert all(lib is libs[0] for lib in libs)
+        else:
+            # separate loads of one file: one compile, the others load it
+            assert sum(lib.build_seconds > 0 for lib in libs) == 1
+            assert len({lib.path for lib in libs}) == 1
+    assert len(list(tmp_path.glob("lib*.so"))) == 4
+    assert FA.LAUNCHES == {"flash_attention_kernel": 4 * reps}
+    assert FA.VARIANT_LAUNCHES == {"wgmma_bf16": 4 * reps, "fma_f32": 0}
+    assert SS.LAUNCHES == {"selective_scan_kernel": 4 * reps}
+    assert K.LAUNCHES == {"sched_wave_kernel": 0,
+                          "sched_plan_kernel": 4 * reps}

@@ -85,12 +85,13 @@ def test_flash_attention_matches_jax_kernel(B, Hq, Hkv, S, d, causal, dtype):
     np.testing.assert_allclose(_f32(got), _f32(want), **_attn_tol(dtype))
 
 
-def _tensor_core_numerics(q, k, v, causal, block_k=128):
+def _tensor_core_numerics(q, k, v, causal, block_k=64):
     """The roundings of the bf16 tensor-core attention kernel, in plain
     PyTorch: bf16 inputs, f32 Q.K^T (products of bf16 are exact in f32),
     the scale applied after the product, an online softmax over tiles of
     ``block_k`` keys with masked scores at -1e30, l summed from the f32 P,
-    and P rounded to bf16 before P.V."""
+    and P.V as two products of bf16 operands into one f32 accumulator:
+    P's bf16 high part and its bf16 residual, each times V."""
     B, Hq, S, d = q.shape
     G = Hq // k.shape[1]
     qf = q.float()
@@ -109,7 +110,9 @@ def _tensor_core_numerics(q, k, v, causal, block_k=128):
         p = torch.exp(s - m_new)
         alpha = torch.exp(m - m_new)
         l = l * alpha + p.sum(-1, keepdim=True)
-        acc = acc * alpha + p.bfloat16().float() @ vt
+        p_hi = p.bfloat16().float()
+        p_lo = (p - p_hi).bfloat16().float()
+        acc = acc * alpha + p_hi @ vt + p_lo @ vt
         m = m_new
     return (acc / l.clamp_min(1e-30)).to(q.dtype)
 
@@ -125,6 +128,22 @@ def test_tensor_core_numerics_match_jax_kernel(d, causal):
                      interpret=True)
     got = _tensor_core_numerics(qt, kt, vt, causal)
     assert got.dtype == torch.bfloat16 and got.shape == qt.shape
+    np.testing.assert_allclose(_f32(got), _f32(want), **_attn_tol("bfloat16"))
+
+
+@pytest.mark.parametrize("d", [64, 80, 96, 128])
+@pytest.mark.parametrize("causal", [True, False])
+def test_tensor_core_numerics_large_v_match_jax_kernel(d, causal):
+    """q, k and v scaled by 8: the high + residual split holds the JAX
+    kernel to the bf16 tolerance at every head dim, with the kernel's kv
+    tile of 64 keys.  Rounding P to bf16 before P.V
+    instead misses it at d = 96, full attention, on these inputs."""
+    (qj, qt), (kj, kt), (vj, vt) = (
+        (j * 8, t * 8) for j, t in _attn_inputs(1, 8, 2, 256, d, "bfloat16",
+                                                 seed=0))
+    want = jax_flash(qj, kj, vj, causal=causal, block_q=128, block_k=128,
+                     interpret=True)
+    got = _tensor_core_numerics(qt, kt, vt, causal)
     np.testing.assert_allclose(_f32(got), _f32(want), **_attn_tol("bfloat16"))
 
 
