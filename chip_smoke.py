@@ -34,6 +34,20 @@ plain version on the card at the tolerances of
 ``tests/test_kernels.py``, with the plain versions in full f32 (TF32
 off); attention is also held to a relative RMS error per block of 64
 query rows, a limit that a control dropping one kv tile must exceed.
+Last it drives the DSMS serving path of ``python -m
+repro_torch.launch.serve`` (phase ``serve``): qwen3-8b at full size
+(36 layers, d_model 4096, random bf16 weights from a seed, batch 4, a KV
+cache of 1024 positions) through ``DSMSEngine``, whose plan, ``retime``
+and ``mark_failed`` replans go through ``sched_plan_kernel`` and are
+held bit for bit to a scalar session on the same calls, and
+``sched_plan_kernel`` is held exactly to its plain version on the
+serving instance's 21-alpha grid and on the replans' resumed launches;
+it times 32 decode steps with CUDA events beside the step's byte bound,
+reads the device's busy time a step from a torch.profiler trace of 4
+more, checks every logit finite and every token in the vocabulary, and
+holds
+``decode_step`` against ``forward`` at full width (2 layers) in bf16 at
+2e-2 and in f32 (TF32 off) at 1e-4.
 bf16 attention must go to the tensor-core kernel and f32 to the
 CUDA-core one, bf16 with q, k and v scaled by 8 must hold the elementwise
 bf16 tolerance, and each attention case is timed warm and with the L2
@@ -93,6 +107,9 @@ from repro_torch.kernels.flash_attention.ref import \
 from repro_torch.kernels.ssm_scan import kernel as SS  # noqa: E402
 from repro_torch.kernels.ssm_scan.ops import selective_scan  # noqa: E402
 from repro_torch.kernels.ssm_scan.ref import selective_scan_ref  # noqa: E402
+from repro_torch.launch.serve import build_engine  # noqa: E402
+from repro_torch.models import init_params, tree_leaves  # noqa: E402
+from repro_torch.models import model as M  # noqa: E402
 
 # NVIDIA H100 SXM data sheet: HBM3 bandwidth, FP64 and FP32 (non-tensor)
 # peaks, dense bf16 tensor-core peak
@@ -123,6 +140,17 @@ EXP9_RATES = [1.0, 1.2, 0.9, 1.1, 1.3, 0.95, 1.05, 0.3]
 EXP10_RATES = [1.0, 1.2, 0.9, 1.1, 1.3, 0.95, 1.05, 0.8]
 EXP9_10_SPEEDS = [1.0, 2.0, 1.5, 1.0, 3.0, 2.5, 1.0, 2.0]
 EXP9_POLICY = HVLB_CC_B(alpha_max=1.0, alpha_step=0.25)   # exp10's too
+# the serve phase: python -m repro_torch.launch.serve at qwen3-8b, full
+# size, batch 4, 1024 positions of KV cache; 2 warm-up and 32 timed steps
+SERVE_ARCH = "qwen3-8b"
+SERVE_BATCH, SERVE_MAX_SEQ = 4, 1024
+SERVE_WARMUP, SERVE_STEPS = 2, 32
+# then 4 more under torch.profiler, for the device's busy time a step
+SERVE_PROFILED_STEPS = 4
+DEVICE_CATS = ("kernel", "gpu_memcpy", "gpu_memset")
+# decode_step against forward at full width: bf16 at the reference's own
+# 2e-2 (tests/test_smoke_archs.py); f32 (TF32 off) at 1e-4, PERF.md §6
+DECODE_TOL = {torch.bfloat16: 2e-2, torch.float32: 1e-4}
 
 
 def emit(obj) -> None:
@@ -545,6 +573,25 @@ def check_resumed(resumed, picks: int = 4) -> dict:
             "max_abs_err": err}
 
 
+def recording_resumed(fn):
+    """``fn()`` with the staged inputs of every sched_plan_kernel launch
+    that starts from a replayed prefix (a placed task in proc0) kept, to
+    hold the kernel against its plain version after the path: returns
+    ``(fn(), resumed)``."""
+    launch, resumed = K.sched_plan, []
+
+    def recording(**args):
+        if bool((args["proc0"] < args["T"].P).any()):
+            resumed.append(args)
+        return launch(**args)
+
+    K.sched_plan = recording
+    try:
+        return fn(), resumed
+    finally:
+        K.sched_plan = launch
+
+
 def same_plan(what, got, want) -> None:
     """A plan of the card held to the port's scalar session, bit for bit:
     every grid makespan, the best alpha, the best schedule's placements,
@@ -688,21 +735,8 @@ def phase_update(drive, paths, g7, tg7, q7s) -> dict:
     re-simulated alpha, from the state of the replayed prefix."""
     calls = update_calls(g7, q7s)
     cu7 = Scheduler(tg7, policy=EXP7_POLICY)
-    # the staged inputs of every launch that starts from a replayed
-    # prefix (a placed task in proc0), kept to hold the kernel against
-    # its plain version after the path
-    launch, resumed = K.sched_plan, []
-
-    def recording(**args):
-        if bool((args["proc0"] < args["T"].P).any()):
-            resumed.append(args)
-        return launch(**args)
-
-    K.sched_plan = recording
-    try:
-        upd = drive("exp7_update", lambda: timed_calls(cu7, calls))
-    finally:
-        K.sched_plan = launch
+    upd, resumed = recording_resumed(
+        lambda: drive("exp7_update", lambda: timed_calls(cu7, calls)))
     resumed_err = check_resumed(resumed)
     t1 = time.perf_counter()
     upd_ref = timed_calls(Scheduler(tg7, policy=EXP7_POLICY,
@@ -844,6 +878,225 @@ def phase_service(drive, paths) -> dict:
                 "p99_replan_latency_s": st_off.p99_replan_latency_s()},
             "launches": {k: paths[k]
                          for k in ("service_on", "service_off")}}
+
+
+def busy_us(events) -> float:
+    """Length of the union of ``[ts, ts + dur)`` over ``events``."""
+    total, end = 0.0, float("-inf")
+    for ts, dur in sorted((e["ts"], e["dur"]) for e in events):
+        if ts >= end:
+            total += dur
+            end = ts + dur
+        elif ts + dur > end:
+            total += ts + dur - end
+            end = ts + dur
+    return total
+
+
+def profiled_steps(eng, toks, n):
+    """``n`` decode steps under torch.profiler: the device's busy time a
+    step (the union of its kernel, memcpy and memset intervals, ms), the
+    kernels a step, and the five kernels (by name) that take the most
+    device time, in ms a step.  The trace goes to the checkout's build/
+    and is removed once read."""
+    act = torch.profiler.ProfilerActivity
+    with torch.profiler.profile(activities=[act.CPU, act.CUDA]) as prof:
+        for _ in range(n):
+            toks = eng.step(toks).tokens
+        torch.cuda.synchronize()
+    path = ROOT / "build" / "serve_decode_trace.json"
+    path.parent.mkdir(exist_ok=True)
+    prof.export_chrome_trace(str(path))
+    try:
+        events = [e for e in json.loads(path.read_text())["traceEvents"]
+                  if e.get("ph") == "X" and e.get("cat") in DEVICE_CATS]
+    finally:
+        path.unlink()
+    if not events:
+        raise AssertionError("the decode trace holds no device activity")
+    kernels, by_name = 0, {}
+    for e in events:
+        if e["cat"] == "kernel":
+            kernels += 1
+            by_name[e["name"][:60]] = by_name.get(e["name"][:60], 0.0) \
+                + e["dur"]
+    top = {k: v / 1e3 / n for k, v in sorted(
+        by_name.items(), key=lambda kv: -kv[1])[:5]}
+    return busy_us(events) / 1e3 / n, kernels / n, top
+
+
+def decode_vs_forward(dtype) -> dict:
+    """qwen3-8b at full width, cut to 2 layers: the logits of 16
+    ``decode_step`` calls against ``forward`` over the same 16 tokens."""
+    cfg = dataclasses.replace(get_arch(SERVE_ARCH), n_layers=2,
+                              dtype=str(dtype).replace("torch.", ""))
+    dev = torch.device("cuda")
+    params = M._cast(init_params(
+        cfg, torch.Generator(device=dev).manual_seed(1), dev), dtype)
+    B, S = SERVE_BATCH, 16
+    toks = torch.from_numpy(np.random.default_rng(2).integers(
+        0, cfg.vocab, (B, S))).to(dev)
+    full = M.forward(cfg, params, {"tokens": toks})
+    cache = M.init_cache(cfg, B, S, dev)
+    dec = torch.stack([M.decode_step(
+        cfg, params, cache, toks[:, t:t + 1],
+        torch.full((B,), t, device=dev))[0][:, 0] for t in range(S)], 1)
+    tol = DECODE_TOL[dtype]
+    err = hold(f"decode_step vs forward {cfg.dtype}", dec, full, tol)
+    return {"n_layers": cfg.n_layers, "d_model": cfg.d_model, "tokens": S,
+            "max_abs_err": err, "max_abs_logit": full.abs().max().item(),
+            "tol": tol}
+
+
+def phase_serve(drive, paths) -> dict:
+    """The DSMS serving path of ``python -m repro_torch.launch.serve`` at
+    qwen3-8b's full size: the engine over random weights, its plan and two
+    replans (each held bit for bit to a scalar session on the same calls),
+    then the timed decode, then decode against forward at full width."""
+    cfg = get_arch(SERVE_ARCH)
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    eng = build_engine(cfg, SERVE_BATCH, SERVE_MAX_SEQ, seed=0)
+    torch.cuda.synchronize()
+    build_s = time.perf_counter() - t0
+    build_peak = torch.cuda.max_memory_allocated()
+    leaves = tree_leaves(eng.params)
+    assert (cfg.n_layers, cfg.d_model) == (36, 4096)
+    assert all(t.dtype == torch.bfloat16 and t.is_cuda for t in leaves)
+    weight_bytes = sum(t.numel() * t.element_size() for t in leaves)
+    cache_bytes = sum(t.numel() * t.element_size()
+                      for t in eng.cache.values())
+
+    ref = Scheduler(eng.topology, backend="scalar",
+                    policy=HVLB_CC_IC(alpha_max=2.0, alpha_step=0.1))
+    calls, ref_last, resumed = {}, {}, []
+
+    def held(name, fn, ref_fn):
+        t = time.perf_counter()
+        resumed.extend(recording_resumed(lambda: drive(name, fn))[1])
+        wall = time.perf_counter() - t
+        want = ref_last["plan"] = ref_fn()
+        assert want.backend == "scalar"
+        for f in ("proc", "start", "finish"):
+            assert np.array_equal(getattr(eng.plan, f),
+                                  getattr(want.schedule, f)), (name, f)
+        assert eng.holes == want.holes, (name, eng.holes, want.holes)
+        calls[name] = {"wall_s": wall, "makespan_s": eng.plan.makespan,
+                       "sched_plan_kernel": paths[name]["sched_plan_kernel"]}
+
+    held("serve_plan", eng.ensure_plan, lambda: ref.submit(eng._graph))
+    # sched_plan_kernel at the serving instance's shapes (the 17-task
+    # graph, P = 4 with the node's shared bus, the 21-alpha grid) against
+    # its plain version on the same card tensors
+    card = eng.scheduler.submit(eng._graph)
+    assert card.backend == "cuda"
+    alphas = [float(a) for a in card.sweep.alphas]
+    assert len(alphas) == 21, alphas
+    q = eng.scheduler._sessions[id(eng._graph)].queue_for(
+        eng.topology, eng.scheduler.policy)
+    plan_err, _, _, plan_waves = check_plan(eng._graph, eng.topology, q,
+                                            alphas, card.period)
+    hub = eng._graph.pred[eng._query_nodes[0]][0]
+    held("serve_retime", lambda: eng.retime({hub: 1.3}),
+         lambda: ref.update(task_rates={hub: 1.3},
+                            graph=ref_last["plan"].graph))
+    held("serve_fault", lambda: eng.mark_failed(proc=3),
+         lambda: ref.mark_failed(proc=3, graph=ref_last["plan"].graph))
+    assert paths["serve_plan"]["sched_plan_kernel"] == 1, paths
+    # and on the staged inputs of the replans' resumed launches
+    resumed_err = check_resumed(resumed)
+
+    # the decode loop; a device-side flag gathers each step's
+    # finiteness check (two small kernels a step, no sync)
+    finite = torch.ones((), dtype=torch.bool, device="cuda")
+    step = eng._step
+
+    def checked(*args):
+        logits, cache = step(*args)
+        finite.logical_and_(torch.isfinite(logits).all())
+        return logits, cache
+
+    eng._step = checked
+    toks = np.zeros(SERVE_BATCH, np.int64)
+    seen = []
+    for _ in range(SERVE_WARMUP):
+        toks = eng.step(toks).tokens
+        seen.append(toks)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    a, b = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+
+    def decode():
+        nonlocal toks
+        a.record()
+        for _ in range(SERVE_STEPS):
+            res = eng.step(toks)
+            toks = res.tokens
+            seen.append(toks)
+        b.record()
+        return res
+
+    last = drive("serve_decode", decode)
+    ms = a.elapsed_time(b) / SERVE_STEPS
+    decode_peak = torch.cuda.max_memory_allocated()
+    assert bool(finite), "a logit is not finite"
+    seen = np.stack(seen)
+    assert seen.shape == (SERVE_WARMUP + SERVE_STEPS, SERVE_BATCH)
+    assert ((seen >= 0) & (seen < cfg.vocab)).all(), seen
+    assert eng.pos == SERVE_WARMUP + SERVE_STEPS
+    assert all(v == 0 for v in paths["serve_decode"].values()), paths
+    eng._step = step                    # profile the step alone
+    busy_ms, kernels, top = profiled_steps(eng, toks, SERVE_PROFILED_STEPS)
+    # the step's least work: every weight but the embedding table read
+    # once (the table only gathered, B rows), the KV rows up to each
+    # step's position read once and its new rows written, the logits
+    # written; 2 flops a weight a token at the bf16 tensor peak
+    embed = eng.params["embed"]
+    positions = range(SERVE_WARMUP, SERVE_WARMUP + SERVE_STEPS)
+    kv_row = 2 * cfg.n_layers * SERVE_BATCH * cfg.n_kv_heads \
+        * cfg.head_dim * 2
+    step_bytes = weight_bytes - embed.numel() * embed.element_size() \
+        + SERVE_BATCH * cfg.d_model * 2 \
+        + sum(kv_row * (p + 2) for p in positions) / SERVE_STEPS \
+        + SERVE_BATCH * cfg.vocab * 4
+    step_flops = 2 * (weight_bytes // 2 - embed.numel()) * SERVE_BATCH
+    bound_ms, bound_by = bound(int(step_bytes), step_flops, BF16_OPS_PER_S)
+    out = {"phase": "serve", "entry": "repro_torch.launch.serve "
+           "(build_engine, default_queries) -> DSMSEngine",
+           "arch": cfg.name, "n_layers": cfg.n_layers,
+           "d_model": cfg.d_model, "batch": SERVE_BATCH,
+           "max_seq": SERVE_MAX_SEQ, "weight_bytes": weight_bytes,
+           "kv_cache_bytes": cache_bytes, "build_s": build_s,
+           "max_memory_allocated_build_bytes": build_peak,
+           "max_memory_allocated_decode_bytes": decode_peak,
+           "plan_calls": calls, "plan_vs_plain": {
+               "alphas": len(alphas), "waves": plan_waves,
+               "max_abs_err": plan_err},
+           "resumed_vs_plain": resumed_err,
+           "plan_makespan_s": eng.plan.makespan,
+           "replans": eng.replans, "holes": {
+               str(k): v for k, v in eng.holes.items()},
+           "warmup_steps": SERVE_WARMUP, "steps": SERVE_STEPS,
+           "ms_per_step": ms,
+           "tokens_per_s": SERVE_BATCH / ms * 1e3,
+           "step_bytes": int(step_bytes), "bound_ms": bound_ms,
+           "bound_by": bound_by, "bound_share": bound_ms / ms,
+           "profiled_steps": SERVE_PROFILED_STEPS,
+           "device_busy_ms_per_step": busy_ms,
+           "kernels_per_step": kernels,
+           "top_kernels_ms_per_step": top,
+           "idle_share": 1.0 - busy_ms / ms,
+           "precise": last.precise, "precision": last.precision,
+           "last_tokens": last.tokens.tolist(),
+           "launches": {k: paths[k] for k in (
+               "serve_plan", "serve_retime", "serve_fault",
+               "serve_decode")}}
+    del eng, step, checked, last
+    torch.cuda.empty_cache()
+    out["decode_vs_forward"] = {str(dt).replace("torch.", ""):
+                                decode_vs_forward(dt)
+                                for dt in (torch.bfloat16, torch.float32)}
+    return out
 
 
 def main() -> int:
@@ -1151,12 +1404,18 @@ def main() -> int:
           "exp_per_s": exp_per_s, "cases": scan,
           "launches": paths["scan"]})
 
-    # ---- 7. kernels: each path launches its own kernels and no other;
+    # ---- 7. the DSMS serving path at qwen3-8b's full size
+    torch.cuda.empty_cache()
+    serve = phase_serve(drive, paths)
+    emit(serve)
+
+    # ---- 8. kernels: each path launches its own kernels and no other;
     # the kernels line carries each kernel's count on its path and, for
     # the attention and scan kernels, the numbers of the first (bf16)
     # case at the widths above
     plan_paths = ("paper_submit", "exp7_submit", "exp7_update",
-                  "paper_faults", "exp9_faults", "service_on", "service_off")
+                  "paper_faults", "exp9_faults", "service_on", "service_off",
+                  "serve_plan", "serve_retime", "serve_fault")
     for name in plan_paths:
         assert paths[name]["sched_plan_kernel"] > 0, (name, paths[name])
         assert paths[name]["sched_wave_kernel"] == 0, (name, paths[name])
@@ -1191,13 +1450,16 @@ def main() -> int:
          "path": "Scheduler.submit, exp7; Scheduler.update and "
                  "probe_update, exp7; mark_failed, degrade and restore, "
                  "paper and exp9; SchedulerService, exp10 (coalescing on "
-                 "and off)",
+                 "and off); DSMSEngine.ensure_plan, retime and mark_failed, "
+                 "qwen3-8b serving graph",
          "launches": sum(paths[k]["sched_plan_kernel"]
                          for k in plan_paths if k != "paper_submit"),
          "launches_by_path": {k: paths[k]["sched_plan_kernel"]
                               for k in plan_paths if k != "paper_submit"},
          "max_abs_err": max(e_p_paper, e_p7,
-                            upd["resumed_vs_plain"]["max_abs_err"]),
+                            upd["resumed_vs_plain"]["max_abs_err"],
+                            serve["plan_vs_plain"]["max_abs_err"],
+                            serve["resumed_vs_plain"]["max_abs_err"]),
          "ms": k2_ms,
          "plain_ms": k2_plain_ms, "bound_ms": k2_bound, "bound_by": k2_by,
          "library_ms": None},

@@ -1,0 +1,17 @@
+"""The LM substrate's model, ported: parameter specs and init, the
+dense layers, forward and decode (the twin of :mod:`repro.models` for
+the ``dense``, ``vlm`` and ``audio`` families), and the carry function
+for the reference's weights."""
+from .convert import params_from_jax
+from .layers import apply_rope, attention, mlp, rms_norm
+from .model import (cache_specs, decode_step, forward, init_cache,
+                    layer_params)
+from .params import (ParamSpec, init_params, param_bytes, param_specs,
+                     tree_leaves, tree_map)
+
+__all__ = [
+    "ParamSpec", "param_specs", "init_params", "param_bytes", "tree_map",
+    "tree_leaves", "params_from_jax", "rms_norm", "apply_rope",
+    "attention", "mlp", "forward", "cache_specs", "init_cache",
+    "decode_step", "layer_params",
+]

@@ -541,3 +541,62 @@ def test_libraries_build_once_and_count_exactly_across_threads(
     assert SS.LAUNCHES == {"selective_scan_kernel": 4 * reps}
     assert K.LAUNCHES == {"sched_wave_kernel": 0,
                           "sched_plan_kernel": 4 * reps}
+
+
+@pytest.mark.parametrize("name", ["qwen2-0.5b", "qwen3-8b"])
+def test_dsms_engine_on_card_equals_cpu(name, card):
+    """The serving engine at a reduced size in f32 on the card against
+    the same engine on the CPU: the same tokens and query outputs within
+    1e-5 each step, plans and holes bit-identical, each plan and replan
+    through ``sched_plan_kernel``."""
+    import dataclasses
+
+    from repro_torch.configs import get_arch, reduced_config
+    from repro_torch.launch.serve import default_queries
+    from repro_torch.models.params import init_params, tree_map
+    from repro_torch.serve import DSMSEngine
+
+    cfg = dataclasses.replace(reduced_config(get_arch(name)),
+                              dtype="float32")
+    weights = init_params(cfg, torch.Generator().manual_seed(0), "cpu")
+    engines = []
+    for dev in (card, torch.device("cpu")):
+        eng = DSMSEngine(cfg, tree_map(lambda a: a.to(dev), weights), 2, 16,
+                         device=dev)
+        for q in default_queries():
+            eng.register(q)
+        engines.append(eng)
+    gpu, cpu = engines
+
+    def same_plan():
+        for f in ("proc", "start", "finish"):
+            assert np.array_equal(getattr(gpu.plan, f), getattr(cpu.plan, f))
+        assert gpu.holes == cpu.holes and gpu.replans == cpu.replans
+
+    K.reset_launches()
+    gpu.ensure_plan()
+    assert K.LAUNCHES == {"sched_wave_kernel": 0, "sched_plan_kernel": 1}
+    cpu.ensure_plan()
+    same_plan()
+    toks = np.zeros(2, np.int64)
+    for step in range(6):
+        if step == 2:
+            hub = gpu._graph.pred[gpu._query_nodes[0]][0]
+            for eng in engines:
+                eng.retime({hub: 1.3})
+        if step == 4:
+            for eng in engines:
+                eng.mark_failed(proc=3)
+        same_plan()
+        a, b = gpu.step(toks), cpu.step(toks)
+        np.testing.assert_array_equal(a.tokens, b.tokens)
+        torch.testing.assert_close(a.query_outputs["argmax_conf"].cpu(),
+                                   b.query_outputs["argmax_conf"],
+                                   **TOL[torch.float32])
+        torch.testing.assert_close(a.query_outputs["topk"][0].cpu(),
+                                   b.query_outputs["topk"][0],
+                                   **TOL[torch.float32])
+        assert (a.precise, a.precision) == (b.precise, b.precision)
+        toks = a.tokens
+    assert K.LAUNCHES["sched_wave_kernel"] == 0
+    assert K.LAUNCHES["sched_plan_kernel"] > 2
