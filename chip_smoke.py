@@ -47,7 +47,18 @@ reads the device's busy time a step from a torch.profiler trace of 4
 more, checks every logit finite and every token in the vocabulary, and
 holds
 ``decode_step`` against ``forward`` at full width (2 layers) in bf16 at
-2e-2 and in f32 (TF32 off) at 1e-4.
+2e-2 and in f32 (TF32 off) at 1e-4.  Phase ``serve_families`` drives
+the same path at olmoe-1b-7b (moe), falcon-mamba-7b (ssm) and
+zamba2-2.7b (hybrid), each at full size (16 timed steps, 2 profiled),
+then holds each family's decode at full width: falcon-mamba's
+``decode_step`` against ``forward`` (2 layers; bf16 2e-2, f32 1e-4),
+zamba2's (12 layers in 2 groups of 6) in f64 elementwise and in f32 and
+bf16 by relative RMS against the forward's own error in that dtype
+(then block by block in f32), olmoe's (2 layers) on the card against
+the CPU in f64 and f32 with every MoE call's routing equal, and
+dbrx-132b's MoE layer alone at full width (card against CPU, a
+decode-sized and a prefill-sized group; the model does not fit one
+card).
 bf16 attention must go to the tensor-core kernel and f32 to the
 CUDA-core one, bf16 with q, k and v scaled by 8 must hold the elementwise
 bf16 tolerance, and each attention case is timed warm and with the L2
@@ -109,7 +120,9 @@ from repro_torch.kernels.ssm_scan.ops import selective_scan  # noqa: E402
 from repro_torch.kernels.ssm_scan.ref import selective_scan_ref  # noqa: E402
 from repro_torch.launch.serve import build_engine  # noqa: E402
 from repro_torch.models import init_params, tree_leaves  # noqa: E402
+from repro_torch.models import layers as L  # noqa: E402
 from repro_torch.models import model as M  # noqa: E402
+from repro_torch.models import tree_map  # noqa: E402
 
 # NVIDIA H100 SXM data sheet: HBM3 bandwidth, FP64 and FP32 (non-tensor)
 # peaks, dense bf16 tensor-core peak
@@ -143,6 +156,11 @@ EXP9_POLICY = HVLB_CC_B(alpha_max=1.0, alpha_step=0.25)   # exp10's too
 # the serve phase: python -m repro_torch.launch.serve at qwen3-8b, full
 # size, batch 4, 1024 positions of KV cache; 2 warm-up and 32 timed steps
 SERVE_ARCH = "qwen3-8b"
+# the serve_families phase: the same at olmoe-1b-7b, falcon-mamba-7b and
+# zamba2-2.7b (layers, d_model), 16 timed steps and 2 profiled
+FAMILY_ARCHS = {"olmoe-1b-7b": (16, 2048), "falcon-mamba-7b": (64, 4096),
+                "zamba2-2.7b": (54, 2560)}
+FAMILY_STEPS, FAMILY_PROFILED_STEPS = 16, 2
 SERVE_BATCH, SERVE_MAX_SEQ = 4, 1024
 SERVE_WARMUP, SERVE_STEPS = 2, 32
 # then 4 more under torch.profiler, for the device's busy time a step
@@ -151,6 +169,25 @@ DEVICE_CATS = ("kernel", "gpu_memcpy", "gpu_memset")
 # decode_step against forward at full width: bf16 at the reference's own
 # 2e-2 (tests/test_smoke_archs.py); f32 (TF32 off) at 1e-4, PERF.md §6
 DECODE_TOL = {torch.bfloat16: 2e-2, torch.float32: 1e-4}
+# The random hybrid and MoE models at full width lack a q/k norm, and
+# their attention scores reach the hundreds at the reference's init, so
+# two f32 evaluations of one function (decode against forward, the card
+# against the CPU) differ elementwise by more than 1e-4 (PERF.md).  Such
+# a pair is held in f64 elementwise at F64_TOL, where the gap is
+# rounding of 1e-13, and in f32 by relative RMS to F32_GAP_RATIO times
+# the f32 error of the side it is compared with (that side's f32 logits
+# against its f64 logits on the same masters): two independent roundings
+# of that size give ~1.4, and tests/test_torch_models.py::
+# test_f32_gap_ratio_{hybrid_full_width,moe} read 0.34-1.23 on the CPU,
+# the reference's own decode included.
+F64_TOL = 1e-9
+F32_GAP_RATIO = 3.0
+# the bf16 hybrid's decode against its forward, held by relative RMS to
+# this multiple of the model's own bf16 error on the same weights (its
+# bf16 forward against its f32 one); set from the reference's own gap,
+# 0.28-0.97 of that error (tests/test_torch_models.py::
+# test_reference_hybrid_bf16_decode_gap)
+HYBRID_BF16_GAP_RATIO = 1.5
 
 
 def emit(obj) -> None:
@@ -334,15 +371,21 @@ def cold_event_ms(fn, reps: int, flush: torch.Tensor) -> float:
     return total / reps
 
 
+def wide(t: torch.Tensor) -> torch.dtype:
+    """The dtype a check computes ``t``'s error in: f64 for f64, else
+    f32."""
+    return torch.float64 if t.dtype == torch.float64 else torch.float32
+
+
 def hold(name: str, got: torch.Tensor, want: torch.Tensor,
          tol: float) -> float:
     """Finite output of the plain version's shape and dtype, within
     ``|got - want| <= tol + tol * |want|`` everywhere; returns the max
-    abs error."""
+    abs error (in f64 for f64 tensors, else in f32)."""
     if got.shape != want.shape or got.dtype != want.dtype:
         raise AssertionError(f"{name}: {got.shape}/{got.dtype} vs "
                              f"{want.shape}/{want.dtype}")
-    g, w = got.float(), want.float()
+    g, w = (t.to(wide(t)) for t in (got, want))
     if not bool(torch.isfinite(g).all()):
         raise AssertionError(f"{name}: non-finite output")
     diff = (g - w).abs()
@@ -925,35 +968,290 @@ def profiled_steps(eng, toks, n):
     return busy_us(events) / 1e3 / n, kernels / n, top
 
 
-def decode_vs_forward(dtype) -> dict:
-    """qwen3-8b at full width, cut to 2 layers: the logits of 16
-    ``decode_step`` calls against ``forward`` over the same 16 tokens."""
-    cfg = dataclasses.replace(get_arch(SERVE_ARCH), n_layers=2,
-                              dtype=str(dtype).replace("torch.", ""))
-    dev = torch.device("cuda")
-    params = M._cast(init_params(
-        cfg, torch.Generator(device=dev).manual_seed(1), dev), dtype)
-    B, S = SERVE_BATCH, 16
-    toks = torch.from_numpy(np.random.default_rng(2).integers(
-        0, cfg.vocab, (B, S))).to(dev)
+def decode_and_forward(cfg, params, toks):
+    """The logits over ``toks`` (B, S) from S ``decode_step`` calls and
+    from one ``forward``, on the tensors' device."""
+    dev = toks.device
+    B, S = toks.shape
     full = M.forward(cfg, params, {"tokens": toks})
     cache = M.init_cache(cfg, B, S, dev)
     dec = torch.stack([M.decode_step(
         cfg, params, cache, toks[:, t:t + 1],
         torch.full((B,), t, device=dev))[0][:, 0] for t in range(S)], 1)
+    return dec, full
+
+
+def cut_params(cfg, seed):
+    """f32 master weights of ``cfg`` on the card, from ``seed``."""
+    dev = torch.device("cuda")
+    return init_params(cfg, torch.Generator(device=dev).manual_seed(seed),
+                       dev)
+
+
+def decode_tokens(cfg, S=16):
+    return torch.from_numpy(np.random.default_rng(2).integers(
+        0, cfg.vocab, (SERVE_BATCH, S))).to("cuda")
+
+
+def decode_vs_forward(arch, n_layers, dtype) -> dict:
+    """``arch`` at full width, cut to ``n_layers``: the logits of 16
+    ``decode_step`` calls against ``forward`` over the same 16 tokens,
+    held elementwise at ``DECODE_TOL``."""
+    cfg = dataclasses.replace(get_arch(arch), n_layers=n_layers,
+                              dtype=str(dtype).replace("torch.", ""))
+    params = M._cast(cut_params(cfg, 1), dtype)
+    toks = decode_tokens(cfg)
+    dec, full = decode_and_forward(cfg, params, toks)
     tol = DECODE_TOL[dtype]
-    err = hold(f"decode_step vs forward {cfg.dtype}", dec, full, tol)
-    return {"n_layers": cfg.n_layers, "d_model": cfg.d_model, "tokens": S,
-            "max_abs_err": err, "max_abs_logit": full.abs().max().item(),
-            "tol": tol}
+    err = hold(f"{arch} decode_step vs forward {cfg.dtype}", dec, full, tol)
+    return {"n_layers": cfg.n_layers, "d_model": cfg.d_model,
+            "tokens": toks.shape[1], "max_abs_err": err,
+            "max_abs_logit": full.abs().max().item(), "tol": tol}
 
 
-def phase_serve(drive, paths) -> dict:
+def hybrid_block_updates(arch, n_layers, attn_every, dtype):
+    """The hybrid at full width, cut to ``n_layers`` in groups of
+    ``attn_every``, in ``dtype`` (TF32 off), block by block: for each
+    Mamba-2 layer and each group's shared block, its name and its update
+    (its output less its input) from 16 decode steps from an empty state
+    on the forward's own input to that block, and from the forward's
+    block."""
+    cfg = dataclasses.replace(get_arch(arch), n_layers=n_layers,
+                              attn_every=attn_every, dtype="float32")
+    params = M._cast(cut_params(cfg, 1), dtype)
+    cfg = dataclasses.replace(cfg, dtype=str(dtype).replace("torch.", ""))
+    toks = decode_tokens(cfg)
+    (B, S), dev = toks.shape, toks.device
+    x = M._embed_tokens(cfg, params, {"tokens": toks})
+    positions = torch.arange(S, device=dev).expand(B, S)
+    cache = M.init_cache(cfg, B, S, dev)
+    out = []
+
+    def steps(fn):
+        return torch.cat([fn(t) for t in range(S)], dim=1)
+
+    for g, group in enumerate(M._groups(cfg, params["blocks"])):
+        for j, p in enumerate(group):
+            want = M._mamba2_block(cfg, p, x)
+            got = steps(lambda t: M._ssm_decode(
+                cfg, L.mamba2, p, x[:, t:t + 1], cache["ssm_h"][g, j],
+                cache["ssm_conv"][g, j]))
+            out.append((f"group {g} layer {j}", got - x, want - x))
+            x = want
+        want = M._dense_block(cfg, params["shared"], x, positions)
+        got = steps(lambda t: M._dense_block(
+            cfg, params["shared"], x[:, t:t + 1], positions[:, t:t + 1],
+            cache={"k": cache["k"][g], "v": cache["v"][g]},
+            cache_pos=torch.full((B,), t, device=dev)))
+        out.append((f"group {g} shared block", got - x, want - x))
+        x = want
+    return out
+
+
+def hybrid_blocks_decode_vs_forward(arch, n_layers, attn_every) -> dict:
+    """``hybrid_block_updates`` in f32, each block's decode update held
+    against its forward update at ``DECODE_TOL`` of the update's scale
+    (its largest magnitude, at least 1): an f32 sum's rounding scales
+    with its terms, and the shared attention's output reaches ~40 at the
+    reference's init.  An addition to the whole model's check
+    (``hybrid_decode_vs_forward``): it names the block where a decode
+    parts from its forward."""
+    tol, err, scales = DECODE_TOL[torch.float32], 0.0, []
+    for name, got, want in hybrid_block_updates(arch, n_layers, attn_every,
+                                                torch.float32):
+        scale = max(1.0, float(want.abs().max()))
+        scales.append(scale)
+        err = max(err, hold(f"{arch} {name} decode vs forward", got / scale,
+                            want / scale, tol) * scale)
+    return {"blocks": len(scales), "max_abs_err": err, "tol": tol,
+            "update_scales": scales}
+
+
+def rel_rms(got: torch.Tensor, want: torch.Tensor) -> float:
+    g, w = got.to(wide(got)), want.to(wide(want))
+    return float((g - w).norm() / w.norm())
+
+
+DTYPES = {"float64": torch.float64, "float32": torch.float32,
+          "bfloat16": torch.bfloat16}
+
+
+def gap_readings(cfg, masters, toks) -> dict:
+    """``decode_and_forward`` of ``cfg`` on its f32 ``masters`` in f64,
+    f32 and bf16: per dtype the relative RMS ``gap`` of decode against
+    forward, its max abs, and the forward's own ``error``, against the
+    next wider dtype's forward (f32 against f64, bf16 against f32).
+    Returns the readings and the f64 decode and forward logits."""
+    out, fulls = {}, {}
+    for name, dt in DTYPES.items():
+        c = dataclasses.replace(cfg, dtype=name)
+        dec, full = decode_and_forward(c, M._cast(masters, dt), toks)
+        if not bool(torch.isfinite(dec).all() & torch.isfinite(full).all()):
+            raise AssertionError(f"{cfg.name} {name}: non-finite logits")
+        fulls[name] = full
+        if name == "float64":
+            exact = dec, full
+        d = (dec - full).abs()
+        out[name] = {"gap": rel_rms(dec, full), "max_abs_err": float(d.max()),
+                     "outside_1e-4": float(
+                         (d > 1e-4 + 1e-4 * full.abs()).double().mean()),
+                     "max_abs_logit": float(full.abs().max())}
+    out["float32"]["error"] = rel_rms(fulls["float32"], fulls["float64"])
+    out["bfloat16"]["error"] = rel_rms(fulls["bfloat16"], fulls["float32"])
+    return out, exact
+
+
+def hybrid_decode_readings(arch, n_layers, attn_every) -> dict:
+    """``gap_readings`` of the hybrid at full width, cut to ``n_layers``
+    in groups of ``attn_every``, on the card (TF32 off)."""
+    cfg = dataclasses.replace(get_arch(arch), n_layers=n_layers,
+                              attn_every=attn_every, dtype="float32")
+    return gap_readings(cfg, cut_params(cfg, 1), decode_tokens(cfg))
+
+
+def hybrid_decode_vs_forward(arch, n_layers, attn_every) -> dict:
+    """The whole hybrid's ``decode_step`` against its ``forward``
+    (``hybrid_decode_readings``): f64 elementwise at ``F64_TOL``; f32 by
+    relative RMS within ``F32_GAP_RATIO`` times the f32 forward's error;
+    bf16 within ``HYBRID_BF16_GAP_RATIO`` times the bf16 forward's
+    error.  Then the f32 block-by-block check as well."""
+    r, (dec, full) = hybrid_decode_readings(arch, n_layers, attn_every)
+    hold(f"{arch} decode_step vs forward float64", dec, full, F64_TOL)
+    r["float64"]["tol"] = F64_TOL
+    for name, ratio in (("float32", F32_GAP_RATIO),
+                        ("bfloat16", HYBRID_BF16_GAP_RATIO)):
+        got = r[name]
+        got["limit"] = ratio * got["error"]
+        if not got["gap"] <= got["limit"]:
+            raise AssertionError(
+                f"{arch} {name} decode_step vs forward: relative RMS "
+                f"{got['gap']} above {got['limit']} ({ratio} x the "
+                f"forward's {name} error {got['error']})")
+    r["float32"]["blocks"] = hybrid_blocks_decode_vs_forward(
+        arch, n_layers, attn_every)
+    return {"n_layers": n_layers, "attn_every": attn_every,
+            "d_model": get_arch(arch).d_model, **r}
+
+
+def recording_routes(fn):
+    """``fn()`` with the experts picked by every MoE call of the model
+    kept (``moe_route``'s picks, on the host): ``(fn(), routes)``."""
+    orig, routes = M.moe, []
+
+    def recording(cfg, p, x):
+        routes.append(L.moe_route(cfg, p, x)[0].cpu())
+        return orig(cfg, p, x)
+
+    M.moe = recording
+    try:
+        return fn(), routes
+    finally:
+        M.moe = orig
+
+
+def moe_card_vs_cpu(arch, n_layers) -> dict:
+    """The MoE model at full width, cut to ``n_layers``: 16
+    ``decode_step`` calls and one ``forward`` on the card against the
+    same port functions on the CPU on the same f32 masters, in f64 and
+    in f32 (TF32 off), every MoE call's picked experts equal (card and
+    CPU, f32 and f64).  f64 is held elementwise at ``F64_TOL``; f32 by
+    relative RMS within ``F32_GAP_RATIO`` times the CPU's f32 error
+    (its f32 logits against its f64 ones).  (Decode differs from forward
+    by the reference's design: a step's group is the batch, so its
+    capacity is 1; the gap is reported.)"""
+    cfg = dataclasses.replace(get_arch(arch), n_layers=n_layers)
+    masters = cut_params(cfg, 1)
+    host = tree_map(lambda a: a.cpu(), masters)
+    toks = decode_tokens(cfg)
+    runs, routes = {}, []
+    for name in ("float64", "float32"):
+        c = dataclasses.replace(cfg, dtype=name)
+        for where, p, t in (("card", masters, toks),
+                            ("cpu", host, toks.cpu())):
+            p = M._cast(p, DTYPES[name])
+            got, r = recording_routes(lambda: decode_and_forward(c, p, t))
+            runs[name, where] = [a.cpu() for a in got]
+            routes.append(r)
+            del p
+    if not all(len(r) == len(routes[0]) and all(
+            torch.equal(a, b) for a, b in zip(r, routes[0]))
+            for r in routes):
+        raise AssertionError(f"{arch}: the card and the CPU, or f32 and "
+                             f"f64, routed tokens to other experts")
+    del masters
+    out = {"n_layers": n_layers, "d_model": cfg.d_model,
+           "experts": cfg.n_experts, "top_k": cfg.top_k,
+           "tokens": toks.shape[1], "moe_calls": len(routes[0]),
+           "routes_equal": True}
+    for i, what in enumerate(("decode", "forward")):
+        card, cpu = runs["float64", "card"][i], runs["float64", "cpu"][i]
+        r64 = {"max_abs_err": hold(f"{arch} {what} card vs cpu float64",
+                                   card, cpu, F64_TOL), "tol": F64_TOL}
+        card, cpu = runs["float32", "card"][i], runs["float32", "cpu"][i]
+        error = rel_rms(cpu, runs["float64", "cpu"][i])
+        r32 = {"rel_rms": rel_rms(card, cpu), "error": error,
+               "limit": F32_GAP_RATIO * error,
+               "max_abs_err": float((card - cpu).abs().max())}
+        if not (bool(torch.isfinite(card).all())
+                and r32["rel_rms"] <= r32["limit"]):
+            raise AssertionError(f"{arch} {what} card vs cpu float32: "
+                                 f"{r32}")
+        out[what] = {"float64": r64, "float32": r32}
+    dec, full = runs["float32", "card"]
+    out["decode_vs_forward_max_abs"] = float((dec - full).abs().max())
+    out["max_abs_logit"] = float(full.abs().max())
+    return out
+
+
+def moe_layer_card_vs_cpu(arch) -> dict:
+    """One MoE layer of ``arch`` at full width in f32 (TF32 off), random
+    weights by the init rule (N(0, 1) / sqrt(fan_in)): on the card
+    against the CPU on a decode-sized group (the batch, capacity 1) and
+    a prefill-sized one (batch x 16 tokens), the output within
+    ``DECODE_TOL`` and the picks and dispatch mask equal."""
+    cfg = dataclasses.replace(get_arch(arch), dtype="float32")
+    D, F, E = cfg.d_model, cfg.d_ff, cfg.n_experts
+    gen = torch.Generator(device="cuda").manual_seed(3)
+    shapes = {"w_router": (D, E), "w_gate": (E, D, F), "w_up": (E, D, F),
+              "w_down": (E, F, D)}
+    p = {k: torch.randn(s, generator=gen, device="cuda").mul_(
+        1.0 / math.sqrt(s[-2])) for k, s in shapes.items()}
+    host = {k: v.cpu() for k, v in p.items()}
+    weight_bytes = nbytes(p.values())
+    tol = DECODE_TOL[torch.float32]
+    out = {"d_model": D, "d_ff": F, "experts": E, "top_k": cfg.top_k,
+           "weight_bytes": weight_bytes}
+    for name, S in (("decode", 1), ("prefill", 16)):
+        x = torch.randn((SERVE_BATCH, S, D), generator=gen, device="cuda")
+        idx, disp, _ = L.moe_route(cfg, p, x)
+        cidx, cdisp, _ = L.moe_route(cfg, host, x.cpu())
+        if not (torch.equal(idx.cpu(), cidx)
+                and torch.equal(disp.cpu(), cdisp)):
+            raise AssertionError(f"{arch} moe {name}: the card routed "
+                                 f"otherwise than the CPU")
+        t0 = time.perf_counter()
+        cpu_out = L.moe(cfg, host, x.cpu())
+        cpu_s = time.perf_counter() - t0
+        err = hold(f"{arch} moe {name} card vs cpu", L.moe(cfg, p, x).cpu(),
+                   cpu_out, tol)
+        out[name] = {"tokens": SERVE_BATCH * S, "capacity": disp.shape[-1],
+                     "kept_picks": int(disp.sum()),
+                     "picks": SERVE_BATCH * S * cfg.top_k,
+                     "routes_equal": True, "max_abs_err": err, "tol": tol,
+                     "cpu_s": cpu_s}
+    return out
+
+
+def serve_arch(drive, paths, arch, prefix, steps, profiled) -> dict:
     """The DSMS serving path of ``python -m repro_torch.launch.serve`` at
-    qwen3-8b's full size: the engine over random weights, its plan and two
-    replans (each held bit for bit to a scalar session on the same calls),
-    then the timed decode, then decode against forward at full width."""
-    cfg = get_arch(SERVE_ARCH)
+    ``arch``'s full size: the engine over random weights, its plan and two
+    replans (each held bit for bit to a scalar session on the same calls,
+    ``sched_plan_kernel`` exact to its plain version on the instance and
+    on the replans' resumed launches), then ``steps`` timed decode steps
+    beside the step's byte bound, then ``profiled`` steps under
+    torch.profiler.  Paths ``{prefix}_plan``, ``_retime``, ``_fault`` and
+    ``_decode``."""
+    cfg = get_arch(arch)
     torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
     eng = build_engine(cfg, SERVE_BATCH, SERVE_MAX_SEQ, seed=0)
@@ -961,11 +1259,9 @@ def phase_serve(drive, paths) -> dict:
     build_s = time.perf_counter() - t0
     build_peak = torch.cuda.max_memory_allocated()
     leaves = tree_leaves(eng.params)
-    assert (cfg.n_layers, cfg.d_model) == (36, 4096)
     assert all(t.dtype == torch.bfloat16 and t.is_cuda for t in leaves)
-    weight_bytes = sum(t.numel() * t.element_size() for t in leaves)
-    cache_bytes = sum(t.numel() * t.element_size()
-                      for t in eng.cache.values())
+    weight_bytes = nbytes(leaves)
+    cache_bytes = nbytes(eng.cache.values())
 
     ref = Scheduler(eng.topology, backend="scalar",
                     policy=HVLB_CC_IC(alpha_max=2.0, alpha_step=0.1))
@@ -984,8 +1280,9 @@ def phase_serve(drive, paths) -> dict:
         calls[name] = {"wall_s": wall, "makespan_s": eng.plan.makespan,
                        "sched_plan_kernel": paths[name]["sched_plan_kernel"]}
 
-    held("serve_plan", eng.ensure_plan, lambda: ref.submit(eng._graph))
-    # sched_plan_kernel at the serving instance's shapes (the 17-task
+    held(f"{prefix}_plan", eng.ensure_plan, lambda: ref.submit(eng._graph))
+    plan_tasks = eng._graph.n
+    # sched_plan_kernel at the serving instance's shapes (the serving
     # graph, P = 4 with the node's shared bus, the 21-alpha grid) against
     # its plain version on the same card tensors
     card = eng.scheduler.submit(eng._graph)
@@ -997,12 +1294,12 @@ def phase_serve(drive, paths) -> dict:
     plan_err, _, _, plan_waves = check_plan(eng._graph, eng.topology, q,
                                             alphas, card.period)
     hub = eng._graph.pred[eng._query_nodes[0]][0]
-    held("serve_retime", lambda: eng.retime({hub: 1.3}),
+    held(f"{prefix}_retime", lambda: eng.retime({hub: 1.3}),
          lambda: ref.update(task_rates={hub: 1.3},
                             graph=ref_last["plan"].graph))
-    held("serve_fault", lambda: eng.mark_failed(proc=3),
+    held(f"{prefix}_fault", lambda: eng.mark_failed(proc=3),
          lambda: ref.mark_failed(proc=3, graph=ref_last["plan"].graph))
-    assert paths["serve_plan"]["sched_plan_kernel"] == 1, paths
+    assert paths[f"{prefix}_plan"]["sched_plan_kernel"] == 1, paths
     # and on the staged inputs of the replans' resumed launches
     resumed_err = check_resumed(resumed)
 
@@ -1029,46 +1326,35 @@ def phase_serve(drive, paths) -> dict:
     def decode():
         nonlocal toks
         a.record()
-        for _ in range(SERVE_STEPS):
+        for _ in range(steps):
             res = eng.step(toks)
             toks = res.tokens
             seen.append(toks)
         b.record()
         return res
 
-    last = drive("serve_decode", decode)
-    ms = a.elapsed_time(b) / SERVE_STEPS
+    last = drive(f"{prefix}_decode", decode)
+    ms = a.elapsed_time(b) / steps
     decode_peak = torch.cuda.max_memory_allocated()
-    assert bool(finite), "a logit is not finite"
+    assert bool(finite), f"{arch}: a logit is not finite"
     seen = np.stack(seen)
-    assert seen.shape == (SERVE_WARMUP + SERVE_STEPS, SERVE_BATCH)
+    assert seen.shape == (SERVE_WARMUP + steps, SERVE_BATCH)
     assert ((seen >= 0) & (seen < cfg.vocab)).all(), seen
-    assert eng.pos == SERVE_WARMUP + SERVE_STEPS
-    assert all(v == 0 for v in paths["serve_decode"].values()), paths
+    assert eng.pos == SERVE_WARMUP + steps
+    assert all(v == 0 for v in paths[f"{prefix}_decode"].values()), paths
     eng._step = step                    # profile the step alone
-    busy_ms, kernels, top = profiled_steps(eng, toks, SERVE_PROFILED_STEPS)
-    # the step's least work: every weight but the embedding table read
-    # once (the table only gathered, B rows), the KV rows up to each
-    # step's position read once and its new rows written, the logits
-    # written; 2 flops a weight a token at the bf16 tensor peak
-    embed = eng.params["embed"]
-    positions = range(SERVE_WARMUP, SERVE_WARMUP + SERVE_STEPS)
-    kv_row = 2 * cfg.n_layers * SERVE_BATCH * cfg.n_kv_heads \
-        * cfg.head_dim * 2
-    step_bytes = weight_bytes - embed.numel() * embed.element_size() \
-        + SERVE_BATCH * cfg.d_model * 2 \
-        + sum(kv_row * (p + 2) for p in positions) / SERVE_STEPS \
-        + SERVE_BATCH * cfg.vocab * 4
-    step_flops = 2 * (weight_bytes // 2 - embed.numel()) * SERVE_BATCH
+    busy_ms, kernels, top = profiled_steps(eng, toks, profiled)
+    step_bytes, step_flops, parts = step_work(
+        cfg, eng, range(SERVE_WARMUP, SERVE_WARMUP + steps))
     bound_ms, bound_by = bound(int(step_bytes), step_flops, BF16_OPS_PER_S)
-    out = {"phase": "serve", "entry": "repro_torch.launch.serve "
-           "(build_engine, default_queries) -> DSMSEngine",
-           "arch": cfg.name, "n_layers": cfg.n_layers,
-           "d_model": cfg.d_model, "batch": SERVE_BATCH,
+    out = {"arch": cfg.name, "family": cfg.family,
+           "n_layers": cfg.n_layers, "d_model": cfg.d_model,
+           "params": cfg.param_count(), "batch": SERVE_BATCH,
            "max_seq": SERVE_MAX_SEQ, "weight_bytes": weight_bytes,
-           "kv_cache_bytes": cache_bytes, "build_s": build_s,
+           "cache_bytes": cache_bytes, "build_s": build_s,
            "max_memory_allocated_build_bytes": build_peak,
            "max_memory_allocated_decode_bytes": decode_peak,
+           "plan_tasks": plan_tasks,
            "plan_calls": calls, "plan_vs_plain": {
                "alphas": len(alphas), "waves": plan_waves,
                "max_abs_err": plan_err},
@@ -1076,26 +1362,107 @@ def phase_serve(drive, paths) -> dict:
            "plan_makespan_s": eng.plan.makespan,
            "replans": eng.replans, "holes": {
                str(k): v for k, v in eng.holes.items()},
-           "warmup_steps": SERVE_WARMUP, "steps": SERVE_STEPS,
+           "warmup_steps": SERVE_WARMUP, "steps": steps,
            "ms_per_step": ms,
            "tokens_per_s": SERVE_BATCH / ms * 1e3,
-           "step_bytes": int(step_bytes), "bound_ms": bound_ms,
-           "bound_by": bound_by, "bound_share": bound_ms / ms,
-           "profiled_steps": SERVE_PROFILED_STEPS,
+           "step_bytes": int(step_bytes), "step_bytes_parts": parts,
+           "bound_ms": bound_ms, "bound_by": bound_by,
+           "bound_share": bound_ms / ms,
+           "profiled_steps": profiled,
            "device_busy_ms_per_step": busy_ms,
            "kernels_per_step": kernels,
            "top_kernels_ms_per_step": top,
            "idle_share": 1.0 - busy_ms / ms,
            "precise": last.precise, "precision": last.precision,
            "last_tokens": last.tokens.tolist(),
-           "launches": {k: paths[k] for k in (
-               "serve_plan", "serve_retime", "serve_fault",
-               "serve_decode")}}
+           "launches": {k: paths[f"{prefix}_{k}"] for k in (
+               "plan", "retime", "fault", "decode")}}
     del eng, step, checked, last
     torch.cuda.empty_cache()
-    out["decode_vs_forward"] = {str(dt).replace("torch.", ""):
-                                decode_vs_forward(dt)
-                                for dt in (torch.bfloat16, torch.float32)}
+    return out
+
+
+def step_work(cfg, eng, positions):
+    """A decode step's least work, averaged over ``positions``: every
+    weight but the embedding table read once (the table only gathered, B
+    rows; the hybrid's shared block once a group, since 9 x its 210 MB
+    outgrow the L2), the KV rows up to the step's position read and its
+    new rows written, the SSM state and conv rows read and written, the
+    logits written; 2 flops a weight a row through it (B rows; one
+    capacity slot a group through each expert) at the bf16 tensor peak.
+    Returns (bytes, flops, {part: bytes})."""
+    p = eng.params
+    embed = p["embed"]
+    B, n = SERVE_BATCH, len(positions)
+    weights = nbytes(tree_leaves(p)) - nbytes([embed])
+    if "lm_head" not in p:                   # tied: the head reads it
+        weights += nbytes([embed])
+    parts = {"weights": weights, "embed_rows": B * cfg.d_model * 2,
+             "logits": B * cfg.vocab * 4}
+    flops = 2 * (weights // 2) * B
+    if cfg.family == "moe":
+        moe_bytes = nbytes(tree_leaves(p["blocks"]["moe"]))
+        C = max(1, int(cfg.top_k * B / cfg.n_experts * 1.25))
+        flops -= 2 * (moe_bytes // 2) * (B - C)
+    if cfg.family == "hybrid":
+        G = cfg.n_layers // cfg.attn_every
+        parts["shared_again"] = (G - 1) * nbytes(tree_leaves(p["shared"]))
+        flops += 2 * (parts["shared_again"] // 2) * B
+    c = eng.cache
+    if "k" in c:                             # rows of K and V a layer
+        kv_layers, row = c["k"].shape[0], 2 * B * cfg.n_kv_heads \
+            * cfg.head_dim * c["k"].element_size()
+        parts["kv"] = sum(kv_layers * row * (q + 2) for q in positions) // n
+    for k in ("h", "conv", "ssm_h", "ssm_conv"):
+        if k in c:
+            parts[k] = 2 * nbytes([c[k]])
+    return sum(parts.values()), flops, parts
+
+
+def phase_serve(drive, paths) -> dict:
+    """The DSMS serving path at qwen3-8b's full size (``serve_arch``),
+    then decode against forward at full width."""
+    out = {"phase": "serve", "entry": "repro_torch.launch.serve "
+           "(build_engine, default_queries) -> DSMSEngine",
+           **serve_arch(drive, paths, SERVE_ARCH, "serve", SERVE_STEPS,
+                        SERVE_PROFILED_STEPS)}
+    assert (out["n_layers"], out["d_model"]) == (36, 4096)
+    out["kv_cache_bytes"] = out.pop("cache_bytes")
+    out["launches"] = {f"serve_{k}": v for k, v in out["launches"].items()}
+    out["decode_vs_forward"] = {
+        str(dt).replace("torch.", ""): decode_vs_forward(SERVE_ARCH, 2, dt)
+        for dt in (torch.bfloat16, torch.float32)}
+    return out
+
+
+def phase_serve_families(drive, paths) -> dict:
+    """The serving path at the full size of one architecture of each
+    family this port added to the serve path (``serve_arch``), then each
+    family's decode check at full width: falcon-mamba (2 layers) and
+    zamba2 (12 layers, 2 groups of 6) decode against forward; olmoe (2
+    layers) on the card against the CPU, with equal routing; dbrx's MoE
+    layer alone (the model is too large for one card)."""
+    t0 = time.perf_counter()
+    out = {"phase": "serve_families", "entry": "repro_torch.launch.serve "
+           "(build_engine, default_queries) -> DSMSEngine", "archs": {}}
+    for arch, shape in FAMILY_ARCHS.items():
+        got = serve_arch(drive, paths, arch, f"serve_{arch}", FAMILY_STEPS,
+                         FAMILY_PROFILED_STEPS)
+        assert (got["n_layers"], got["d_model"]) == shape, (arch, got)
+        out["archs"][arch] = got
+    fm, zb = "falcon-mamba-7b", "zamba2-2.7b"
+    out["archs"][fm]["decode_vs_forward"] = {
+        str(dt).replace("torch.", ""): decode_vs_forward(fm, 2, dt)
+        for dt in (torch.bfloat16, torch.float32)}
+    out["archs"][zb]["decode_vs_forward"] = hybrid_decode_vs_forward(
+        zb, 12, 6)
+    torch.cuda.empty_cache()
+    out["archs"]["olmoe-1b-7b"]["card_vs_cpu"] = moe_card_vs_cpu(
+        "olmoe-1b-7b", 2)
+    torch.cuda.empty_cache()
+    out["dbrx-132b_moe_layer"] = moe_layer_card_vs_cpu("dbrx-132b")
+    torch.cuda.empty_cache()
+    out["phase_s"] = time.perf_counter() - t0
     return out
 
 
@@ -1409,13 +1776,20 @@ def main() -> int:
     serve = phase_serve(drive, paths)
     emit(serve)
 
-    # ---- 8. kernels: each path launches its own kernels and no other;
+    # ---- 8. the serving path of the moe, ssm and hybrid families
+    torch.cuda.empty_cache()
+    families = phase_serve_families(drive, paths)
+    emit(families)
+
+    # ---- 9. kernels: each path launches its own kernels and no other;
     # the kernels line carries each kernel's count on its path and, for
     # the attention and scan kernels, the numbers of the first (bf16)
     # case at the widths above
     plan_paths = ("paper_submit", "exp7_submit", "exp7_update",
                   "paper_faults", "exp9_faults", "service_on", "service_off",
-                  "serve_plan", "serve_retime", "serve_fault")
+                  "serve_plan", "serve_retime", "serve_fault") + tuple(
+                      f"serve_{a}_{k}" for a in FAMILY_ARCHS
+                      for k in ("plan", "retime", "fault"))
     for name in plan_paths:
         assert paths[name]["sched_plan_kernel"] > 0, (name, paths[name])
         assert paths[name]["sched_wave_kernel"] == 0, (name, paths[name])
@@ -1451,7 +1825,8 @@ def main() -> int:
                  "probe_update, exp7; mark_failed, degrade and restore, "
                  "paper and exp9; SchedulerService, exp10 (coalescing on "
                  "and off); DSMSEngine.ensure_plan, retime and mark_failed, "
-                 "qwen3-8b serving graph",
+                 "qwen3-8b, olmoe-1b-7b, falcon-mamba-7b and zamba2-2.7b "
+                 "serving graphs",
          "launches": sum(paths[k]["sched_plan_kernel"]
                          for k in plan_paths if k != "paper_submit"),
          "launches_by_path": {k: paths[k]["sched_plan_kernel"]
@@ -1459,7 +1834,11 @@ def main() -> int:
          "max_abs_err": max(e_p_paper, e_p7,
                             upd["resumed_vs_plain"]["max_abs_err"],
                             serve["plan_vs_plain"]["max_abs_err"],
-                            serve["resumed_vs_plain"]["max_abs_err"]),
+                            serve["resumed_vs_plain"]["max_abs_err"],
+                            *(f[k]["max_abs_err"]
+                              for f in families["archs"].values()
+                              for k in ("plan_vs_plain",
+                                        "resumed_vs_plain"))),
          "ms": k2_ms,
          "plain_ms": k2_plain_ms, "bound_ms": k2_bound, "bound_by": k2_by,
          "library_ms": None},

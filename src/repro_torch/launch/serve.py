@@ -1,14 +1,18 @@
 """Production serving launcher: batched decode with the DSMS query engine
 (the twin of ``python -m repro.launch.serve``).
 
-On the card (the default)::
+Every decoder architecture of ``repro_torch.configs`` serves (the
+dense, vlm, moe, ssm and hybrid families; the encoder-only
+hubert-xlarge has no decode step).  On the card (the default)::
 
     PYTHONPATH=src python -m repro_torch.launch.serve --arch qwen3-8b \\
         --batch 4 --max-seq 1024 --steps 32
+    PYTHONPATH=src python -m repro_torch.launch.serve \\
+        --arch falcon-mamba-7b --batch 4 --max-seq 1024 --steps 32
 
 and on the CPU, at a reduced size::
 
-    PYTHONPATH=src python -m repro_torch.launch.serve --arch qwen2-0.5b \\
+    PYTHONPATH=src python -m repro_torch.launch.serve --arch zamba2-2.7b \\
         --reduced --device cpu --steps 2
 
 Weights are random, drawn from ``--seed``.  Steps are timed with CUDA

@@ -1,9 +1,10 @@
 """The LM substrate's model, ported: parameter specs and init, the
-dense layers, forward and decode (the twin of :mod:`repro.models` for
-the ``dense``, ``vlm`` and ``audio`` families), and the carry function
-for the reference's weights."""
+layers (attention, MLP, MoE, Mamba-1, Mamba-2), forward for every
+family and decode for every decoder (the twin of :mod:`repro.models`),
+and the carry function for the reference's weights."""
 from .convert import params_from_jax
-from .layers import apply_rope, attention, mlp, rms_norm
+from .layers import (apply_rope, attention, mamba1, mamba2, mlp, moe,
+                     moe_route, rms_norm)
 from .model import (cache_specs, decode_step, forward, init_cache,
                     layer_params)
 from .params import (ParamSpec, init_params, param_bytes, param_specs,
@@ -12,6 +13,6 @@ from .params import (ParamSpec, init_params, param_bytes, param_specs,
 __all__ = [
     "ParamSpec", "param_specs", "init_params", "param_bytes", "tree_map",
     "tree_leaves", "params_from_jax", "rms_norm", "apply_rope",
-    "attention", "mlp", "forward", "cache_specs", "init_cache",
+    "attention", "mlp", "moe", "moe_route", "mamba1", "mamba2", "forward", "cache_specs", "init_cache",
     "decode_step", "layer_params",
 ]

@@ -1,15 +1,16 @@
-"""Model layers in plain PyTorch, the twin of :mod:`repro.models.layers`
-(its dense and attention layers; the MoE and Mamba layers come with
-their families, ``ROADMAP.md`` queue 1).
+"""Model layers in plain PyTorch, the twin of :mod:`repro.models.layers`:
+attention, the MLP, the GShard MoE, and the Mamba-1 and Mamba-2 blocks.
 
 The algebra is the reference's, step for step: attention scores and
 softmax in f32 with the mask value -1e30, the weights cast to v's dtype
-before P·V, ``rms_norm`` through f32 and back, SiLU and the tanh GELU
-written as ``jax.nn`` composes them, so a bf16 activation rounds where
-the reference's does.  Functions take plain dicts of tensors.
-The reference's ``shard`` constraints are no-ops without a mesh and have
-no counterpart here.  A cached decode writes its token's k and v into
-the cache in place.
+before P·V, ``rms_norm`` through f32 and back, SiLU, the tanh GELU and
+softplus written as ``jax.nn`` composes them, so a bf16 activation
+rounds where the reference's does.  The MoE routes as ``jax.lax.top_k``
+does (ties to the lower expert index) and drops the same overflow; the
+Mamba blocks scan in f32 with the reference's chunking.  Functions take
+plain dicts of tensors.  The reference's ``shard`` constraints are
+no-ops without a mesh and have no counterpart here.  A cached decode
+writes its token's k and v into the cache in place.
 """
 from __future__ import annotations
 
@@ -28,23 +29,36 @@ ATTN_CHUNK_THRESHOLD = 8192
 ATTN_CHUNK = 2048
 # mask value of a score that must get no weight
 MASKED = -1e30
+# MoE dispatch group size + capacity factor (GShard-style), and the
+# Mamba scan's chunk (the reference's values)
+MOE_GROUP = 256
+MOE_CAPACITY_FACTOR = 1.25
+SSM_CHUNK = 256
+
+
+def _f32(x: torch.Tensor) -> torch.Tensor:
+    """``x`` in f32, where the reference computes in f32; an f64 ``x``
+    stays f64, so a model run in f64 (``dtype="float64"``) is exact
+    arithmetic throughout, the witness its f32 checks compare with."""
+    return x if x.dtype == torch.float64 else x.float()
 
 
 def rms_norm(x: torch.Tensor, w: torch.Tensor, eps: float) -> torch.Tensor:
     dt = x.dtype
-    x = x.float()
+    x = _f32(x)
     x = x * torch.rsqrt((x * x).mean(dim=-1, keepdim=True) + eps)
     return (x * w).to(dt)
 
 
 # ----------------------------------------------------------------- rotary
-def _rope_angles(positions: torch.Tensor, dim: int,
-                 theta: float) -> Tuple[torch.Tensor, torch.Tensor]:
-    """positions (...,) -> cos/sin (..., dim//2)."""
-    ar = torch.arange(0, dim, 2, dtype=torch.float32,
-                      device=positions.device)
+def _rope_angles(positions: torch.Tensor, dim: int, theta: float,
+                 dtype: torch.dtype = torch.float32
+                 ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """positions (...,) -> cos/sin (..., dim//2), in ``dtype`` (f32, as
+    the reference; f64 in an f64 model)."""
+    ar = torch.arange(0, dim, 2, dtype=dtype, device=positions.device)
     freqs = 1.0 / (theta ** (ar / dim))
-    ang = positions.float()[..., None] * freqs
+    ang = positions.to(dtype)[..., None] * freqs
     return torch.cos(ang), torch.sin(ang)
 
 
@@ -60,16 +74,17 @@ def apply_rope(cfg: ModelConfig, q: torch.Tensor, k: torch.Tensor,
                positions: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
     """q (B,S,H,dh), k (B,S,K,dh), positions (B,S) integers."""
     dh = cfg.head_dim
+    at = torch.promote_types(q.dtype, torch.float32)    # the angles' dtype
     if cfg.rope == "none":
         return q, k
     if cfg.rope == "standard":
-        cos, sin = _rope_angles(positions, dh, cfg.rope_theta)
+        cos, sin = _rope_angles(positions, dh, cfg.rope_theta, at)
         cos, sin = cos[:, :, None, :], sin[:, :, None, :]
         return _apply_rot(q, cos, sin), _apply_rot(k, cos, sin)
     if cfg.rope == "partial":
         # chatglm-style 2d RoPE: rotary on the first half of head_dim.
         rd = dh // 2
-        cos, sin = _rope_angles(positions, rd, cfg.rope_theta)
+        cos, sin = _rope_angles(positions, rd, cfg.rope_theta, at)
         cos, sin = cos[:, :, None, :], sin[:, :, None, :]
         q = torch.cat([_apply_rot(q[..., :rd], cos, sin), q[..., rd:]], -1)
         k = torch.cat([_apply_rot(k[..., :rd], cos, sin), k[..., rd:]], -1)
@@ -82,9 +97,9 @@ def apply_rope(cfg: ModelConfig, q: torch.Tensor, k: torch.Tensor,
         pos_t = positions
         pos_h = positions // 64
         pos_w = positions % 64
-        cos_t, sin_t = _rope_angles(pos_t, dh, cfg.rope_theta)
-        cos_h, sin_h = _rope_angles(pos_h, dh, cfg.rope_theta)
-        cos_w, sin_w = _rope_angles(pos_w, dh, cfg.rope_theta)
+        cos_t, sin_t = _rope_angles(pos_t, dh, cfg.rope_theta, at)
+        cos_h, sin_h = _rope_angles(pos_h, dh, cfg.rope_theta, at)
+        cos_w, sin_w = _rope_angles(pos_w, dh, cfg.rope_theta, at)
         idx = torch.arange(dh // 2, device=positions.device)
         sel_h = (idx >= 2 * sec) & (idx < 3 * sec)
         sel_w = idx >= 3 * sec
@@ -113,7 +128,7 @@ def _weighted_values(scores: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
 def _sdpa_full(q, k, v, causal: bool, q_offset) -> torch.Tensor:
     """q (B,Sq,K,G,dh), k/v (B,Sk,K,dh) -> (B,Sq,K,G,dh)."""
     scale = 1.0 / math.sqrt(q.shape[-1])
-    scores = torch.einsum("bqkgh,bskh->bkgqs", q.float() * scale, k.float())
+    scores = torch.einsum("bqkgh,bskh->bkgqs", _f32(q) * scale, _f32(k))
     if causal:
         sq, sk = q.shape[1], k.shape[1]
         qpos = q_offset + torch.arange(sq, device=q.device)
@@ -128,12 +143,12 @@ def _sdpa_chunked(q, k, v, causal: bool) -> torch.Tensor:
     B, S, K, G, dh = q.shape
     C = ATTN_CHUNK
     scale = 1.0 / math.sqrt(dh)
-    kf = k.float()
+    kf = _f32(k)
     keys = torch.arange(S, device=q.device)
     outs = []
     for i in range(S // C):
         qi = q[:, i * C:(i + 1) * C]
-        scores = torch.einsum("bqkgh,bskh->bkgqs", qi.float() * scale, kf)
+        scores = torch.einsum("bqkgh,bskh->bkgqs", _f32(qi) * scale, kf)
         if causal:
             qpos = i * C + torch.arange(C, device=q.device)
             scores = scores.masked_fill(~(qpos[:, None] >= keys[None, :]),
@@ -174,8 +189,8 @@ def attention(cfg: ModelConfig, p: Params, x: torch.Tensor,
         cv.index_copy_(1, idx, v.to(cv.dtype))
         new_cache = {"k": ck, "v": cv}
         scale = 1.0 / math.sqrt(dh)
-        scores = torch.einsum("bqkgh,bskh->bkgqs", qg.float() * scale,
-                              ck.float())
+        scores = torch.einsum("bqkgh,bskh->bkgqs", _f32(qg) * scale,
+                              _f32(ck))
         Sk = ck.shape[1]
         mask = torch.arange(Sk, device=x.device)[None, :] \
             <= cache_pos[:, None]                            # (B, Sk)
@@ -220,3 +235,240 @@ def mlp(cfg: ModelConfig, p: Params, x: torch.Tensor) -> torch.Tensor:
     else:
         h = _gelu(torch.einsum("bsd,df->bsf", x, p["w_up"]))
     return torch.einsum("bsf,fd->bsd", h, p["w_down"])
+
+
+def _softplus(x: torch.Tensor) -> torch.Tensor:
+    """``jax.nn.softplus``: ``logaddexp(x, 0)`` as ``jax.lax`` writes it,
+    max(x, 0) + log1p(exp(-|x|)), each operation rounded to x's dtype
+    (a NaN input comes out NaN, as there)."""
+    return torch.where(torch.isnan(x), x,
+                       torch.clamp_min(x, 0) + torch.log1p(
+                           torch.exp(-torch.abs(x))))
+
+
+def _one_hot(idx: torch.Tensor, n: int,
+             dtype: torch.dtype = torch.float32) -> torch.Tensor:
+    """``jax.nn.one_hot(idx, n)``, f32 unless ``dtype`` says otherwise:
+    an index outside [0, n) gives a row of zeros (``F.one_hot`` would
+    raise)."""
+    return (idx[..., None] == torch.arange(n, device=idx.device)).to(dtype)
+
+
+# -------------------------------------------------------------------- moe
+def moe_route(cfg: ModelConfig, p: Params, x: torch.Tensor
+              ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """The MoE's routing: tokens in groups of ``MOE_GROUP``, each group
+    dispatching to per-expert capacity ``C = top_k * G / E * 1.25``.
+
+    Router logits in x's dtype, softmax in f32, the top k by a stable
+    descending sort (ties to the lower index, as ``jax.lax.top_k``), gate
+    values renormalised; each pick's slot is the exclusive count of
+    earlier picks of its expert over the group's picks, token-major and
+    slot-minor, and a pick past the capacity is dropped.  Returns the
+    picked experts (n, G, k) and the dispatch and combine masks
+    (n, G, E, C), f32."""
+    B, S, D = x.shape
+    E, k = cfg.n_experts, cfg.top_k
+    G = min(MOE_GROUP, B * S)
+    n_groups = B * S // G
+    C = max(1, int(k * G / E * MOE_CAPACITY_FACTOR))
+
+    xt = x.reshape(n_groups, G, D)
+    logits = torch.einsum("ngd,de->nge", xt, p["w_router"].to(x.dtype))
+    probs = torch.softmax(_f32(logits), dim=-1)
+    vals, idx = torch.sort(probs, dim=-1, descending=True, stable=True)
+    gate_vals, gate_idx = vals[..., :k], idx[..., :k]       # (n, G, k)
+    gate_vals = gate_vals / gate_vals.sum(-1, keepdim=True)
+
+    onehot = _one_hot(gate_idx, E, probs.dtype)              # (n,G,k,E)
+    flat = onehot.reshape(n_groups, G * k, E)
+    pos = (torch.cumsum(flat, dim=1) - flat).reshape(n_groups, G, k, E)
+    pos_sel = (pos * onehot).sum(-1)                         # (n,G,k)
+    keep = pos_sel < C
+    cap_oh = _one_hot(pos_sel.to(torch.int32), C, probs.dtype) \
+        * keep[..., None]
+    disp = torch.einsum("ngke,ngkc->ngec", onehot, cap_oh)
+    comb = torch.einsum("ngke,ngkc->ngec", onehot * gate_vals[..., None],
+                        cap_oh)
+    return gate_idx, disp, comb
+
+
+def moe(cfg: ModelConfig, p: Params, x: torch.Tensor) -> torch.Tensor:
+    """GShard-style top-k MoE with grouped one-hot dispatch and capacity
+    (:func:`moe_route`); overflow tokens drop to the residual path.
+    Every expert runs on its whole capacity buffer, as the reference's
+    does."""
+    B, S, D = x.shape
+    _, disp, comb = moe_route(cfg, p, x)
+    xt = x.reshape(disp.shape[0], disp.shape[1], D)
+    xe = torch.einsum("ngd,ngec->necd", xt, disp.to(x.dtype))
+    if cfg.mlp in ("swiglu", "geglu"):
+        act = _silu if cfg.mlp == "swiglu" else _gelu
+        h = act(torch.einsum("necd,edf->necf", xe, p["w_gate"])) * \
+            torch.einsum("necd,edf->necf", xe, p["w_up"])
+    else:
+        h = _gelu(torch.einsum("necd,edf->necf", xe, p["w_up"]))
+    ye = torch.einsum("necf,efd->necd", h, p["w_down"])
+    out = torch.einsum("necd,ngec->ngd", ye, comb.to(x.dtype))
+    return out.reshape(B, S, D)
+
+
+# ------------------------------------------------------------------ mamba
+def _ssm_chunk_scan(deltaA: torch.Tensor,
+                    deltaBx: torch.Tensor) -> torch.Tensor:
+    """Sequential scan over chunks, parallel inside via cumulative
+    products: deltaA, deltaBx (B, n_chunks, C, Di, N), f32;
+    h_t = deltaA_t * h_{t-1} + deltaBx_t, from h = 0.
+
+    Inside a chunk, h_t = cumA_t * (h_in + sum_{u<=t} bx_u / cumA_u) with
+    cumA_t = exp(sum_{u<=t} log deltaA_u), both clamped at 1e-20 where
+    the reference clamps them."""
+    logA = torch.log(torch.clamp_min(deltaA, 1e-20))
+    cumA = torch.exp(torch.cumsum(logA, dim=2))              # (B,nc,C,Di,N)
+    acc = torch.cumsum(deltaBx / torch.clamp_min(cumA, 1e-20), dim=2)
+    h = torch.zeros_like(deltaA[:, 0, 0])                    # (B,Di,N)
+    hs = []
+    for c in range(deltaA.shape[1]):
+        h_states = cumA[:, c] * (h[:, None] + acc[:, c])     # (B,C,Di,N)
+        h = h_states[:, -1]
+        hs.append(h_states)
+    return torch.stack(hs, dim=1)                            # (B,nc,C,Di,N)
+
+
+def _causal_conv(x: torch.Tensor, w: torch.Tensor,
+                 state: Optional[torch.Tensor]
+                 ) -> Tuple[torch.Tensor, Optional[torch.Tensor]]:
+    """Depthwise causal conv1d: x (B,S,Ch), w (k,Ch), the taps added in
+    order in x's dtype.  With ``state`` (B,k-1,Ch), the rows before x,
+    also the next state: the last k-1 rows of (state, x)."""
+    B, S, Ch = x.shape
+    k = w.shape[0]
+    if state is None:
+        pad = x.new_zeros((B, k - 1, Ch))
+        new_state = None
+    else:
+        pad = state
+        new_state = torch.cat([state, x], dim=1)[:, -(k - 1):]
+    xp = torch.cat([pad, x], dim=1)
+    out = sum(xp[:, i:i + S] * w[i] for i in range(k))
+    return out, new_state
+
+
+def mamba1(cfg: ModelConfig, p: Params, x: torch.Tensor,
+           state: Optional[Params] = None,
+           ) -> Tuple[torch.Tensor, Optional[Params]]:
+    """Mamba-1 selective SSM block (falcon-mamba), chunked scan.
+
+    Decode: x (B,1,D) and ``state = {"h": (B,Di,N) f32, "conv":
+    (B,k-1,Di)}``; returns the next state (new tensors)."""
+    B, S, D = x.shape
+    Di, N, R = cfg.d_inner, cfg.d_state, cfg.dt_rank
+    xz = torch.einsum("bsd,de->bse", x, p["w_in"])           # (B,S,2Di)
+    xs, z = torch.split(xz, [Di, Di], dim=-1)
+    conv_state = state["conv"] if state is not None else None
+    xs, new_conv = _causal_conv(xs, p["conv_w"], conv_state)
+    xs = _silu(xs + p["conv_b"])
+
+    bcdt = torch.einsum("bse,er->bsr", xs, p["w_x"])         # (B,S,R+2N)
+    dt_low, Bss, Css = torch.split(bcdt, [R, N, N], dim=-1)
+    dt = _softplus(torch.einsum("bsr,re->bse", dt_low, p["w_dt"])
+                   + p["dt_bias"])                           # (B,S,Di)
+    A = -torch.exp(_f32(p["A_log"]))                       # (Di,N)
+
+    deltaA = torch.exp(_f32(dt)[..., None] * A)            # (B,S,Di,N)
+    dBx = _f32(dt * xs)[..., None] * _f32(Bss)[:, :, None, :]
+
+    if state is not None:
+        h = deltaA[:, 0] * state["h"] + dBx[:, 0]            # (B,Di,N)
+        y = torch.einsum("ben,bn->be", h, _f32(Css[:, 0]))[:, None]
+        new_state = {"h": h, "conv": new_conv}
+    else:
+        C_chunk = min(SSM_CHUNK, S)
+        nc = S // C_chunk
+        hs = _ssm_chunk_scan(deltaA.reshape(B, nc, C_chunk, Di, N),
+                             dBx.reshape(B, nc, C_chunk, Di, N))
+        hs = hs.reshape(B, S, Di, N)
+        y = torch.einsum("bsen,bsn->bse", hs, _f32(Css))
+        new_state = None
+
+    y = y.to(x.dtype) + xs * p["D_skip"]
+    y = y * _silu(z)
+    out = torch.einsum("bse,ed->bsd", y, p["w_out"])
+    return out, new_state
+
+
+def mamba2(cfg: ModelConfig, p: Params, x: torch.Tensor,
+           state: Optional[Params] = None,
+           ) -> Tuple[torch.Tensor, Optional[Params]]:
+    """Mamba-2 (SSD) block with a scalar decay per head (the zamba2
+    backbone).  Prefill: chunked SSD, the intra-chunk decay mask L and
+    an inter-chunk state recurrence, in f32.  Decode: x (B,1,D) and
+    ``state = {"h": (B,Hs,dh,N) f32, "conv": (B,k-1,Di+2N)}``; returns
+    the next state (new tensors)."""
+    B, S, D = x.shape
+    Di, N = cfg.d_inner, cfg.d_state
+    Hs, dh = cfg.n_ssm_heads, cfg.ssm_head_dim
+    zxbcdt = torch.einsum("bsd,de->bse", x, p["w_in"])
+    z, xs, Bss, Css, dt_raw = torch.split(zxbcdt, [Di, Di, N, N, Hs],
+                                          dim=-1)
+    conv_in = torch.cat([xs, Bss, Css], dim=-1)
+    conv_state = state["conv"] if state is not None else None
+    conv_out, new_conv = _causal_conv(conv_in, p["conv_w"], conv_state)
+    conv_out = _silu(conv_out + p["conv_b"])
+    xs, Bss, Css = torch.split(conv_out, [Di, N, N], dim=-1)
+
+    dt = _softplus(dt_raw + p["dt_bias"])                    # (B,S,Hs)
+    A = -torch.exp(_f32(p["A_log"]))                       # (Hs,)
+    dA = _f32(dt) * A                                      # log-decay
+    xh = xs.reshape(B, S, Hs, dh)
+
+    if state is not None:
+        decay = torch.exp(dA[:, 0])                          # (B,Hs)
+        # the bf16 outer product rounds to x's dtype, then adds to the
+        # f32 state (JAX promotes the sum to f32)
+        h = state["h"] * decay[..., None, None] + torch.einsum(
+            "bhe,bn->bhen", dt[:, 0, :, None] * xh[:, 0], Bss[:, 0])
+        y = torch.einsum("bhen,bn->bhe", h, _f32(Css[:, 0]))
+        y = y.reshape(B, 1, Di)
+        new_state = {"h": h, "conv": new_conv}
+    else:
+        C_chunk = min(SSM_CHUNK, S)
+        nc = S // C_chunk
+        cum = torch.cumsum(dA.reshape(B, nc, C_chunk, Hs), dim=2)
+        xdt = _f32(dt.reshape(B, nc, C_chunk, Hs)[..., None]
+                   * xh.reshape(B, nc, C_chunk, Hs, dh))
+        Bc = _f32(Bss.reshape(B, nc, C_chunk, N))
+        Cc = _f32(Css.reshape(B, nc, C_chunk, N))
+        # intra-chunk: L[t,u] = exp(cum_t - cum_u) for t >= u
+        diff = cum[:, :, :, None, :] - cum[:, :, None, :, :]  # (B,nc,C,C,Hs)
+        tri = torch.ones(C_chunk, C_chunk, dtype=torch.bool,
+                         device=x.device).tril()
+        L = torch.where(tri[None, None, :, :, None], torch.exp(diff),
+                        torch.zeros((), device=x.device))
+        scores = torch.einsum("bntk,bnuk->bntu", Cc, Bc)     # (B,nc,C,C)
+        # the three-operand contractions pairwise, in opt_einsum's order
+        y_intra = torch.einsum("bntuh,bnuhe->bnthe",
+                               scores[..., None] * L, xdt)
+        # inter-chunk: carry the state across chunks
+        seg_end = cum[:, :, -1]                              # (B,nc,Hs)
+        chunk_state = torch.einsum(
+            "bnuhe,bnuk->bnhek",
+            torch.exp(seg_end[:, :, None] - cum)[..., None] * xdt, Bc)
+        h = torch.zeros((B, Hs, dh, N), dtype=Bc.dtype,
+                        device=x.device)
+        h_in = []
+        for c in range(nc):
+            h_in.append(h)
+            h = h * torch.exp(seg_end[:, c])[..., None, None] \
+                + chunk_state[:, c]
+        h_in = torch.stack(h_in, dim=1)                      # (B,nc,Hs,dh,N)
+        y_inter = torch.einsum(
+            "bnthk,bnhek->bnthe",
+            Cc[:, :, :, None, :] * torch.exp(cum)[..., None], h_in)
+        y = (y_intra + y_inter).reshape(B, S, Di)
+        new_state = None
+
+    y = y.to(x.dtype) + xs * p["D_skip"].repeat_interleave(dh)
+    y = rms_norm(y * _silu(z), p["out_norm"], cfg.norm_eps)
+    out = torch.einsum("bse,ed->bsd", y, p["w_out"])
+    return out, new_state

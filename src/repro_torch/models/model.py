@@ -1,41 +1,41 @@
-"""The model: forward and decode, the twin of :mod:`repro.models.model`
-for the families whose layers are ported (``dense``, ``vlm`` and the
-encoder-only ``audio``; decode for ``dense`` and ``vlm``).  The ``moe``,
-``ssm`` and ``hybrid`` families raise ``NotImplementedError``: their
-layers are queued in ``ROADMAP.md`` (queue 1 item 4).
+"""The model: forward and decode for every family, the twin of
+:mod:`repro.models.model`: ``dense``, ``vlm`` and ``moe`` (attention and
+an MLP or a GShard MoE), the attention-free ``ssm`` (Mamba-1), the
+``hybrid`` (groups of Mamba-2 layers, each group followed by one
+attention and MLP block whose weights all groups share, with a KV cache
+of its own per group) and the encoder-only ``audio``, which has no
+decode step.
 
 The reference scans a stacked layer axis; here a Python loop walks it,
-one layer's views at a time.  A decode step writes the new token's k
-and v into the cache in place and returns the same cache dict.
+one layer's views at a time (the hybrid's two axes, group and layer, by
+two loops).  A decode step writes the new token's k and v, and each SSM
+layer's next state, into the cache in place and returns the same cache
+dict.
 """
 from __future__ import annotations
 
-from typing import Any, Dict, List, Sequence, Tuple, Union
+from typing import Any, Dict, List, Tuple, Union
 
 import torch
 import torch.nn.functional as F
 
 from ..configs.base import ModelConfig
-from .layers import attention, mlp, rms_norm
+from .layers import _f32, attention, mamba1, mamba2, mlp, moe, rms_norm
 from .params import ParamSpec, tree_map
 
 Tree = Dict[str, Any]
 
-_PORTED = ("dense", "vlm", "audio")
-_DECODE_PORTED = ("dense", "vlm")
 
-
-def _require(cfg: ModelConfig, families: Sequence[str], what: str) -> None:
-    if cfg.family in ("moe", "ssm", "hybrid"):
-        raise NotImplementedError(
-            f"{cfg.name}: the {cfg.family} family's {what} is not ported "
-            f"yet (ROADMAP.md, queue 1 item 4)")
-    if cfg.family not in families:
+def _require_decoder(cfg: ModelConfig, what: str) -> None:
+    if not cfg.decoder:
         raise ValueError(f"{cfg.name} ({cfg.family}) has no {what}")
 
 
 def _dtype(cfg: ModelConfig) -> torch.dtype:
-    return torch.bfloat16 if cfg.dtype == "bfloat16" else torch.float32
+    """The config's compute dtype: bf16 or f32 as the reference's, or
+    f64, the exact-arithmetic witness of the f32 checks."""
+    return {"bfloat16": torch.bfloat16,
+            "float64": torch.float64}.get(cfg.dtype, torch.float32)
 
 
 def _cast(tree: Tree, dtype: torch.dtype) -> Tree:
@@ -63,42 +63,109 @@ def _embed_tokens(cfg: ModelConfig, params: Tree,
 
 
 def _dense_block(cfg: ModelConfig, p: Tree, x: torch.Tensor,
-                 positions: torch.Tensor) -> torch.Tensor:
+                 positions: torch.Tensor, cache=None, cache_pos=None
+                 ) -> torch.Tensor:
+    """Attention and the feed-forward, each on the normed residual; a
+    decode passes the layer's KV cache and the positions it writes.  The
+    hybrid's shared block is one too (its params have an ``mlp``)."""
     h, _ = attention(cfg, p["attn"], rms_norm(x, p["norm1"], cfg.norm_eps),
-                     positions)
+                     positions, cache=cache, cache_pos=cache_pos)
     x = x + h
-    xn = rms_norm(x, p["norm2"], cfg.norm_eps)
-    return x + mlp(cfg, p["mlp"], xn)
+    return x + _ffn(cfg, p, rms_norm(x, p["norm2"], cfg.norm_eps))
+
+
+def _ffn(cfg: ModelConfig, p: Tree, xn: torch.Tensor) -> torch.Tensor:
+    """A dense block's feed-forward: its MoE where it has one, else its
+    MLP."""
+    return moe(cfg, p["moe"], xn) if "moe" in p else mlp(cfg, p["mlp"], xn)
+
+
+def _ssm_block(cfg: ModelConfig, p: Tree, x: torch.Tensor) -> torch.Tensor:
+    h, _ = mamba1(cfg, p, rms_norm(x, p["norm"], cfg.norm_eps))
+    return x + h
+
+
+def _mamba2_block(cfg: ModelConfig, p: Tree,
+                  x: torch.Tensor) -> torch.Tensor:
+    h, _ = mamba2(cfg, p, rms_norm(x, p["norm"], cfg.norm_eps))
+    return x + h
+
+
+def _groups(cfg: ModelConfig, blocks: Tree) -> List[List[Tree]]:
+    """The hybrid's Mamba-2 layers, stacked (G, per, ...): each group's
+    layers as views."""
+    G = cfg.n_layers // cfg.attn_every
+    return [layer_params(tree_map(lambda a, g=g: a[g], blocks),
+                         cfg.attn_every) for g in range(G)]
 
 
 def _logits(cfg: ModelConfig, params: Tree, x: torch.Tensor) -> torch.Tensor:
     x = rms_norm(x, params["final_norm"], cfg.norm_eps)
     head = params.get("lm_head", params["embed"])
-    return torch.einsum("bsd,vd->bsv", x, head).float()
+    return _f32(torch.einsum("bsd,vd->bsv", x, head))
 
 
 def forward(cfg: ModelConfig, params: Tree, batch: Tree) -> torch.Tensor:
     """Full-sequence forward -> logits (B, S, V) in f32."""
-    _require(cfg, _PORTED, "forward")
     params = _cast(params, _dtype(cfg))
     x = _embed_tokens(cfg, params, batch)
     B, S, _ = x.shape
     positions = torch.arange(S, dtype=torch.int32,
                              device=x.device).expand(B, S)
-    for p in layer_params(params["blocks"], cfg.n_layers):
-        x = _dense_block(cfg, p, x, positions)
+    if cfg.family in ("dense", "vlm", "audio", "moe"):
+        for p in layer_params(params["blocks"], cfg.n_layers):
+            x = _dense_block(cfg, p, x, positions)
+    elif cfg.family == "ssm":
+        for p in layer_params(params["blocks"], cfg.n_layers):
+            x = _ssm_block(cfg, p, x)
+    elif cfg.family == "hybrid":
+        for group in _groups(cfg, params["blocks"]):
+            for p in group:
+                x = _mamba2_block(cfg, p, x)
+            x = _dense_block(cfg, params["shared"], x, positions)
+    else:
+        raise ValueError(cfg.family)
     return _logits(cfg, params, x)
 
 
 # ------------------------------------------------------------------ decode
 def cache_specs(cfg: ModelConfig, batch: int, max_seq: int) -> Tree:
-    """ParamSpec tree for the decode state: the KV cache of the families
-    whose decode step is ported."""
-    _require(cfg, _DECODE_PORTED, "decode state")
+    """ParamSpec tree for the decode state: the KV cache, the SSM state
+    (f32, or f64 in an f64 model) and the conv rows, as the family needs
+    them."""
+    _require_decoder(cfg, "decode state")
+    B, S = batch, max_seq
     L, K, dh = cfg.n_layers, cfg.n_kv_heads, cfg.head_dim
-    ax = ("layers", "batch", "cache_seq", None, None)
-    spec = ParamSpec((L, batch, max_seq, K, dh), ax, "zeros", _dtype(cfg))
-    return {"k": spec, "v": spec}
+    f = _dtype(cfg)
+    hf = torch.promote_types(f, torch.float32)
+    Di, N, k = cfg.d_inner, cfg.d_state, cfg.d_conv
+    kv_ax = ("layers", "batch", "cache_seq", None, None)
+    if cfg.family in ("dense", "vlm", "moe"):
+        spec = ParamSpec((L, B, S, K, dh), kv_ax, "zeros", f)
+        return {"k": spec, "v": spec}
+    if cfg.family == "ssm":
+        return {
+            "h": ParamSpec((L, B, Di, N),
+                           ("layers", "batch", "ssm_inner", None),
+                           "zeros", hf),
+            "conv": ParamSpec((L, B, k - 1, Di),
+                              ("layers", "batch", None, "ssm_inner"),
+                              "zeros", f),
+        }
+    if cfg.family == "hybrid":
+        G, per = L // cfg.attn_every, cfg.attn_every
+        Hs, hd = cfg.n_ssm_heads, cfg.ssm_head_dim
+        kv = ParamSpec((G, B, S, K, dh), kv_ax, "zeros", f)
+        return {
+            "ssm_h": ParamSpec((G, per, B, Hs, hd, N),
+                               ("layers", "layers", "batch", "ssm_heads",
+                                None, None), "zeros", hf),
+            "ssm_conv": ParamSpec((G, per, B, k - 1, Di + 2 * N),
+                                  ("layers", "layers", "batch", None,
+                                   "ssm_inner"), "zeros", f),
+            "k": kv, "v": kv,
+        }
+    raise ValueError(f"{cfg.family} has no decode state")
 
 
 def init_cache(cfg: ModelConfig, batch: int, max_seq: int,
@@ -108,21 +175,43 @@ def init_cache(cfg: ModelConfig, batch: int, max_seq: int,
                     cache_specs(cfg, batch, max_seq))
 
 
+def _ssm_decode(cfg: ModelConfig, layer, p: Tree, x: torch.Tensor,
+                h: torch.Tensor, conv: torch.Tensor) -> torch.Tensor:
+    """One Mamba layer's decode step from its state ``h`` and ``conv``
+    (views into the cache), which are overwritten with the next state."""
+    y, st = layer(cfg, p, rms_norm(x, p["norm"], cfg.norm_eps),
+                  state={"h": h, "conv": conv})
+    h.copy_(st["h"])
+    conv.copy_(st["conv"])
+    return x + y
+
+
 def decode_step(cfg: ModelConfig, params: Tree, cache: Tree,
                 tokens: torch.Tensor, positions: torch.Tensor
                 ) -> Tuple[torch.Tensor, Tree]:
     """One serve step: tokens (B, 1), positions (B,) -> logits (B, 1, V);
     the cache is updated in place and returned."""
-    _require(cfg, _DECODE_PORTED, "decode step")
+    _require_decoder(cfg, "decode step")
     params = _cast(params, _dtype(cfg))
     x = _embed_tokens(cfg, params, {"tokens": tokens})
     pos2d = positions[:, None]
-    for i, p in enumerate(layer_params(params["blocks"], cfg.n_layers)):
-        xn = rms_norm(x, p["norm1"], cfg.norm_eps)
-        h, _ = attention(cfg, p["attn"], xn, pos2d,
-                         cache={"k": cache["k"][i], "v": cache["v"][i]},
-                         cache_pos=positions)
-        h = x + h
-        xn = rms_norm(h, p["norm2"], cfg.norm_eps)
-        x = h + mlp(cfg, p["mlp"], xn)
+    if cfg.family in ("dense", "vlm", "moe"):
+        for i, p in enumerate(layer_params(params["blocks"], cfg.n_layers)):
+            x = _dense_block(cfg, p, x, pos2d,
+                             cache={"k": cache["k"][i], "v": cache["v"][i]},
+                             cache_pos=positions)
+    elif cfg.family == "ssm":
+        for i, p in enumerate(layer_params(params["blocks"], cfg.n_layers)):
+            x = _ssm_decode(cfg, mamba1, p, x, cache["h"][i],
+                            cache["conv"][i])
+    elif cfg.family == "hybrid":
+        for g, group in enumerate(_groups(cfg, params["blocks"])):
+            for j, p in enumerate(group):
+                x = _ssm_decode(cfg, mamba2, p, x, cache["ssm_h"][g, j],
+                                cache["ssm_conv"][g, j])
+            x = _dense_block(cfg, params["shared"], x, pos2d,
+                             cache={"k": cache["k"][g], "v": cache["v"][g]},
+                             cache_pos=positions)
+    else:
+        raise ValueError(cfg.family)
     return _logits(cfg, params, x), cache

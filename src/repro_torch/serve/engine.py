@@ -25,6 +25,9 @@ counts the actual scheduler invocations.  Task-time drift re-plans go
 through ``Scheduler.update`` (:meth:`retime`), which replays only the
 affected suffix of the decision trace.
 
+The model is any decoder family of :mod:`repro_torch.models` (dense,
+vlm, moe, ssm, hybrid); its decode state (KV cache, SSM state, conv
+rows) comes from ``init_cache`` and is updated in place each step.
 Everything runs on ``device``: the card (the default) or, when the
 caller asks for it, the CPU.  The weights are cast once, here, to the
 config's dtype; the decode step's own cast is then a no-op.

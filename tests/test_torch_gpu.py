@@ -543,7 +543,8 @@ def test_libraries_build_once_and_count_exactly_across_threads(
                           "sched_plan_kernel": 4 * reps}
 
 
-@pytest.mark.parametrize("name", ["qwen2-0.5b", "qwen3-8b"])
+@pytest.mark.parametrize("name", ["qwen2-0.5b", "qwen3-8b", "olmoe-1b-7b",
+                                  "falcon-mamba-7b", "zamba2-2.7b"])
 def test_dsms_engine_on_card_equals_cpu(name, card):
     """The serving engine at a reduced size in f32 on the card against
     the same engine on the CPU: the same tokens and query outputs within
@@ -600,3 +601,54 @@ def test_dsms_engine_on_card_equals_cpu(name, card):
         toks = a.tokens
     assert K.LAUNCHES["sched_wave_kernel"] == 0
     assert K.LAUNCHES["sched_plan_kernel"] > 2
+
+
+@pytest.mark.parametrize("tokens", [(4, 1), (4, 16)], ids=["decode",
+                                                          "prefill"])
+def test_moe_routes_equal_cpu_on_card(tokens, card):
+    """olmoe's 64 experts, top 8, at d_model 256 in f32: the picks and the
+    dispatch mask on the card equal the CPU's exactly (capacity 1 on a
+    decode-sized group), the output within the whole model's 1e-4."""
+    import dataclasses
+
+    from repro_torch.configs import get_arch
+    from repro_torch.models import layers as PL
+    from repro_torch.models.params import init_params, tree_map
+
+    cfg = dataclasses.replace(get_arch("olmoe-1b-7b"), n_layers=1,
+                              d_model=256, d_ff=128, dtype="float32")
+    p = tree_map(lambda a: a[0], init_params(
+        cfg, torch.Generator().manual_seed(0), "cpu")["blocks"]["moe"])
+    x = torch.from_numpy(np.random.default_rng(3).standard_normal(
+        tokens + (cfg.d_model,)).astype(np.float32))
+    pc = tree_map(lambda a: a.to(card), p)
+    want_idx, want_disp, _ = PL.moe_route(cfg, p, x)
+    got_idx, got_disp, _ = PL.moe_route(cfg, pc, x.to(card))
+    assert torch.equal(got_idx.cpu(), want_idx)
+    assert torch.equal(got_disp.cpu(), want_disp)
+    torch.testing.assert_close(PL.moe(cfg, pc, x.to(card)).cpu(),
+                               PL.moe(cfg, p, x), rtol=1e-4, atol=1e-4)
+
+
+@pytest.mark.parametrize("name", ["falcon-mamba-7b", "zamba2-2.7b"])
+def test_ssm_decode_matches_forward_on_card(name, card):
+    """The recurrent decode against the chunked forward, f32 (TF32 off)
+    on the card, 16 tokens at a reduced size, at 1e-4."""
+    import dataclasses
+
+    from repro_torch.configs import get_arch, reduced_config
+    from repro_torch.models import model as M
+    from repro_torch.models.params import init_params
+
+    cfg = dataclasses.replace(reduced_config(get_arch(name)),
+                              dtype="float32")
+    params = init_params(cfg, torch.Generator(device=card).manual_seed(0),
+                         card)
+    toks = torch.from_numpy(np.random.default_rng(2).integers(
+        0, cfg.vocab, (2, 16))).to(card)
+    full = M.forward(cfg, params, {"tokens": toks})
+    cache = M.init_cache(cfg, 2, 16, card)
+    dec = torch.stack([M.decode_step(cfg, params, cache, toks[:, t:t + 1],
+                                     torch.full((2,), t, device=card))[0][:, 0]
+                       for t in range(16)], 1)
+    torch.testing.assert_close(dec, full, rtol=1e-4, atol=1e-4)

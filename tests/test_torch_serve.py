@@ -129,7 +129,8 @@ def test_dsms_engine_lazy_replan_counts():
     assert set(res.query_outputs) == {"q0", "q1", "q2", "late"}
 
 
-@pytest.mark.parametrize("name", ["qwen2-0.5b", "qwen3-8b"])
+@pytest.mark.parametrize("name", ["qwen2-0.5b", "qwen3-8b", "olmoe-1b-7b",
+                                  "falcon-mamba-7b", "zamba2-2.7b"])
 def test_plan_and_steps_equal_reference(name):
     ref, port = _engines(name)
     ref.ensure_plan()
@@ -171,15 +172,35 @@ def test_replans_equal_reference(event):
     _same_step(ref, port, toks)
 
 
-def test_launcher_runs_on_the_cpu():
+def _launch(arch):
     env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
     out = subprocess.run(
         [sys.executable, "-m", "repro_torch.launch.serve", "--arch",
-         "qwen2-0.5b", "--reduced", "--device", "cpu", "--steps", "2"],
+         arch, "--reduced", "--device", "cpu", "--steps", "2"],
         cwd=ROOT, env=env, capture_output=True, text=True, timeout=300)
     assert out.returncode == 0, out.stderr
     assert "2 registered queries" in out.stdout
     assert "2 steps" in out.stdout
+
+
+def test_launcher_runs_on_the_cpu():
+    _launch("qwen2-0.5b")
+
+
+@pytest.mark.parametrize("name", ["olmoe-1b-7b", "falcon-mamba-7b",
+                                  "zamba2-2.7b", "dbrx-132b"])
+def test_launcher_serves_every_family_on_the_cpu(name):
+    _launch(name)
+
+
+def test_launcher_refuses_the_encoder():
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
+    out = subprocess.run(
+        [sys.executable, "-m", "repro_torch.launch.serve", "--arch",
+         "hubert-xlarge", "--reduced", "--device", "cpu", "--steps", "2"],
+        cwd=ROOT, env=env, capture_output=True, text=True, timeout=300)
+    assert out.returncode != 0
+    assert "encoder-only" in out.stderr
 
 
 def test_engine_defaults_to_the_card():
