@@ -58,7 +58,22 @@ bf16 by relative RMS against the forward's own error in that dtype
 the CPU in f64 and f32 with every MoE call's routing equal, and
 dbrx-132b's MoE layer alone at full width (card against CPU, a
 decode-sized and a prefill-sized group; the model does not fit one
-card).
+card).  Phase ``train`` drives the training path of ``python -m
+repro_torch.launch.train`` (``init_state``, the synthetic pipeline,
+``make_train_step``, ``train_loop``) at qwen2-0.5b's full size (24
+layers, d_model 896, random f32 masters from a seed, bf16 compute), seq
+4096, global batch 4 in 2 microbatches, remat on: 5 steps timed with
+CUDA events after 2 warm-up (ms a step, tokens/s, model FLOPs and their
+share of the bf16 peak, ``mfu``, peak memory), one more under
+torch.profiler (device busy, kernels a step); every loss and grad norm
+finite.  It restarts at full size (3 steps, a save and a restore
+through the port's checkpoint, 3 more) against the straight run's
+losses at rtol 1e-5, and holds one train step on the card against the
+CPU at full width (2 layers, batch 2, seq 512) for qwen2-0.5b and
+olmoe-1b-7b: the loss, every gradient and every updated parameter in
+f64 elementwise at 1e-9, and in f32 (TF32 off) by relative RMS within
+``F32_GAP_RATIO`` times the CPU's own f32 error, with the MoE's routing
+equal in f64 (the f32 runs take the f64 picks).
 bf16 attention must go to the tensor-core kernel and f32 to the
 CUDA-core one, bf16 with q, k and v scaled by 8 must hold the elementwise
 bf16 tolerance, and each attention case is timed warm and with the L2
@@ -87,6 +102,7 @@ import dataclasses
 import json
 import math
 import re
+import shutil
 import subprocess
 import sys
 import time
@@ -109,6 +125,7 @@ from repro_torch.core import (HSV_CC, HVLB_CC_B, HVLB_CC_IC,  # noqa: E402
                               random_spg, rank_matrix, schedule_violations)
 from repro_torch.service import SchedulerService  # noqa: E402
 from repro_torch.configs import SHAPES, get_arch  # noqa: E402
+from repro_torch.configs.base import ShapeConfig  # noqa: E402
 from repro_torch.core.backends import cuda as K  # noqa: E402
 from repro_torch.kernels.flash_attention import kernel as FA  # noqa: E402
 from repro_torch.kernels.flash_attention.ops import \
@@ -118,11 +135,18 @@ from repro_torch.kernels.flash_attention.ref import \
 from repro_torch.kernels.ssm_scan import kernel as SS  # noqa: E402
 from repro_torch.kernels.ssm_scan.ops import selective_scan  # noqa: E402
 from repro_torch.kernels.ssm_scan.ref import selective_scan_ref  # noqa: E402
+from repro_torch.data import SyntheticTokenPipeline  # noqa: E402
 from repro_torch.launch.serve import build_engine  # noqa: E402
-from repro_torch.models import init_params, tree_leaves  # noqa: E402
+from repro_torch.launch.train import (init_state, resume,  # noqa: E402
+                                      train_loop)
+from repro_torch.models import (init_params, param_specs,  # noqa: E402
+                                tree_leaves)
 from repro_torch.models import layers as L  # noqa: E402
 from repro_torch.models import model as M  # noqa: E402
 from repro_torch.models import tree_map  # noqa: E402
+from repro_torch.optim import (AdamWConfig, OptState,  # noqa: E402
+                               adamw_update)
+from repro_torch.train import loss_and_grads, make_train_step  # noqa: E402
 
 # NVIDIA H100 SXM data sheet: HBM3 bandwidth, FP64 and FP32 (non-tensor)
 # peaks, dense bf16 tensor-core peak
@@ -188,6 +212,21 @@ F32_GAP_RATIO = 3.0
 # 0.28-0.97 of that error (tests/test_torch_models.py::
 # test_reference_hybrid_bf16_decode_gap)
 HYBRID_BF16_GAP_RATIO = 1.5
+# the train phase: python -m repro_torch.launch.train's path at
+# qwen2-0.5b, full size, random f32 masters from seed 0, bf16 compute,
+# seq 4096 (train_4k's length), global batch 4 in 2 microbatches, remat
+# on; 2 warm-up steps, 5 timed, 1 under torch.profiler
+TRAIN_ARCH = "qwen2-0.5b"
+TRAIN_BATCH, TRAIN_MICROBATCH = 4, 2
+TRAIN_WARMUP, TRAIN_STEPS = 2, 5
+# the restart check: 3 steps, a save and a restore, 3 more, against the
+# straight run's steps at the rtol of the reference's
+# test_train_restart_exact
+TRAIN_RESTART, TRAIN_RESTART_RTOL = 3, 1e-5
+# one train step on the card against the CPU: full width, cut to 2
+# layers, batch 2, seq 512
+TRAIN_PARITY = ("qwen2-0.5b", "olmoe-1b-7b")
+TRAIN_PARITY_LAYERS, TRAIN_PARITY_BATCH, TRAIN_PARITY_SEQ = 2, 2, 512
 
 
 def emit(obj) -> None:
@@ -936,18 +975,17 @@ def busy_us(events) -> float:
     return total
 
 
-def profiled_steps(eng, toks, n):
-    """``n`` decode steps under torch.profiler: the device's busy time a
-    step (the union of its kernel, memcpy and memset intervals, ms), the
-    kernels a step, and the five kernels (by name) that take the most
-    device time, in ms a step.  The trace goes to the checkout's build/
-    and is removed once read."""
+def device_trace(fn, n):
+    """``fn()``, which runs ``n`` steps, under torch.profiler: the
+    device's busy time a step (the union of its kernel, memcpy and memset
+    intervals, ms), the kernels a step, and the five kernels (by name)
+    that take the most device time, in ms a step.  The trace goes to the
+    checkout's build/ and is removed once read."""
     act = torch.profiler.ProfilerActivity
     with torch.profiler.profile(activities=[act.CPU, act.CUDA]) as prof:
-        for _ in range(n):
-            toks = eng.step(toks).tokens
+        fn()
         torch.cuda.synchronize()
-    path = ROOT / "build" / "serve_decode_trace.json"
+    path = ROOT / "build" / "device_trace.json"
     path.parent.mkdir(exist_ok=True)
     prof.export_chrome_trace(str(path))
     try:
@@ -956,7 +994,7 @@ def profiled_steps(eng, toks, n):
     finally:
         path.unlink()
     if not events:
-        raise AssertionError("the decode trace holds no device activity")
+        raise AssertionError("the trace holds no device activity")
     kernels, by_name = 0, {}
     for e in events:
         if e["cat"] == "kernel":
@@ -966,6 +1004,15 @@ def profiled_steps(eng, toks, n):
     top = {k: v / 1e3 / n for k, v in sorted(
         by_name.items(), key=lambda kv: -kv[1])[:5]}
     return busy_us(events) / 1e3 / n, kernels / n, top
+
+
+def profiled_steps(eng, toks, n):
+    """``n`` decode steps under torch.profiler (``device_trace``)."""
+    def steps():
+        nonlocal toks
+        for _ in range(n):
+            toks = eng.step(toks).tokens
+    return device_trace(steps, n)
 
 
 def decode_and_forward(cfg, params, toks):
@@ -1133,20 +1180,28 @@ def hybrid_decode_vs_forward(arch, n_layers, attn_every) -> dict:
             "d_model": get_arch(arch).d_model, **r}
 
 
-def recording_routes(fn):
-    """``fn()`` with the experts picked by every MoE call of the model
-    kept (``moe_route``'s picks, on the host): ``(fn(), routes)``."""
-    orig, routes = M.moe, []
+def routed(fn, picks=None):
+    """``fn()`` with the picks of every MoE call of the model kept
+    (``moe_route``'s, on the host): ``(fn(), picks kept)``.  Given
+    ``picks`` (a list in call order, as kept by an earlier run of the
+    same calls), call i routes to ``picks[i]`` instead (the model's own
+    ``_dispatch`` of them), and what is kept is each call's own picks."""
+    orig, kept = L.moe_route, []
 
-    def recording(cfg, p, x):
-        routes.append(L.moe_route(cfg, p, x)[0].cpu())
-        return orig(cfg, p, x)
+    def route(cfg, p, x):
+        idx, disp, comb = orig(cfg, p, x)
+        kept.append(idx.cpu())
+        if picks is None:
+            return idx, disp, comb
+        forced = picks[len(kept) - 1].to(idx.device)
+        probs, C = L._router_probs(cfg, p, x)
+        return (forced, *L._dispatch(probs, forced, C))
 
-    M.moe = recording
+    L.moe_route = route
     try:
-        return fn(), routes
+        return fn(), kept
     finally:
-        M.moe = orig
+        L.moe_route = orig
 
 
 def moe_card_vs_cpu(arch, n_layers) -> dict:
@@ -1169,7 +1224,7 @@ def moe_card_vs_cpu(arch, n_layers) -> dict:
         for where, p, t in (("card", masters, toks),
                             ("cpu", host, toks.cpu())):
             p = M._cast(p, DTYPES[name])
-            got, r = recording_routes(lambda: decode_and_forward(c, p, t))
+            got, r = routed(lambda: decode_and_forward(c, p, t))
             runs[name, where] = [a.cpu() for a in got]
             routes.append(r)
             del p
@@ -1463,6 +1518,242 @@ def phase_serve_families(drive, paths) -> dict:
     out["dbrx-132b_moe_layer"] = moe_layer_card_vs_cpu("dbrx-132b")
     torch.cuda.empty_cache()
     out["phase_s"] = time.perf_counter() - t0
+    return out
+
+
+def train_flops(cfg, batch, seq) -> int:
+    """A train step's model FLOPs, PaLM's count: 6 N a token (N =
+    ``param_count``, the tied table once, as the head's matmul) plus
+    12 L H dh S a token for attention's two products, forward and
+    backward, over every score (the model computes the whole square);
+    remat's recomputed forward is not counted."""
+    per_token = 6 * cfg.param_count() + \
+        12 * cfg.n_layers * cfg.n_heads * cfg.head_dim * seq
+    return batch * seq * per_token
+
+
+def train_restart(step_fn, pipe, cfg, straight) -> dict:
+    """The launcher's restart at full size: ``TRAIN_RESTART`` steps from a
+    fresh state with a checkpoint after the last (the launcher's
+    ``train_loop``, under the checkout's build/), ``resume`` into a tree
+    of the state's structure, as many more steps; every loss against the
+    straight run's at ``TRAIN_RESTART_RTOL``."""
+    ck = ROOT / "build" / "train_ckpt"
+    shutil.rmtree(ck, ignore_errors=True)
+    n = TRAIN_RESTART
+    params, opt = init_state(cfg, 0, "cuda")
+    t0 = time.perf_counter()
+    params, opt, first = train_loop(step_fn, pipe, params, opt, 0, n, "cuda",
+                                    str(ck), n, log=None)
+    loop_s = time.perf_counter() - t0
+    ckpt_bytes = sum(f.stat().st_size for f in ck.rglob("*.npy"))
+    del params, opt
+    torch.cuda.empty_cache()
+    shape = tree_map(lambda _: None, param_specs(cfg))
+    t0 = time.perf_counter()
+    params, opt, start = resume(str(ck), shape,
+                                OptState(shape, shape, None), "cuda")
+    torch.cuda.synchronize()
+    restore_s = time.perf_counter() - t0
+    assert start == n and int(opt.step) == n, (start, opt.step)
+    params, opt, rest = train_loop(step_fn, pipe, params, opt, n, 2 * n,
+                                   "cuda", log=None)
+    del params, opt
+    shutil.rmtree(ck)
+    got = [i["loss"] for i in first + rest]
+    want = straight[:2 * n]
+    if not np.allclose(got, want, rtol=TRAIN_RESTART_RTOL, atol=0):
+        raise AssertionError(f"restart losses {got} against the straight "
+                             f"run's {want}")
+    return {"steps": [n, n], "losses": got, "straight_losses": want,
+            "max_rel_err": max(abs(g - w) / abs(w)
+                               for g, w in zip(got, want)),
+            "rtol": TRAIN_RESTART_RTOL, "checkpoint_bytes": ckpt_bytes,
+            "steps_and_save_s": loop_s, "restore_s": restore_s}
+
+
+def leaf_names(tree, prefix=""):
+    """The leaves' key paths, in ``tree_leaves`` order."""
+    return [n for k in sorted(tree) for n in (
+        leaf_names(tree[k], f"{prefix}{k}/") if isinstance(tree[k], dict)
+        else [prefix + k])]
+
+
+def train_step_leaves(cfg, params, batch):
+    """One train step as ``make_train_step`` runs it, split to be read:
+    ``loss_and_grads`` (remat on), then ``adamw_update`` from a fresh
+    state (its mu and nu one zero tree, which AdamW only reads).  Returns
+    [loss] + the gradient leaves + the updated parameter leaves."""
+    loss, grads = loss_and_grads(cfg, params, batch)
+    zeros = tree_map(torch.zeros_like, params)
+    new, _, _ = adamw_update(AdamWConfig(), params, grads, OptState(
+        zeros, zeros, torch.zeros((), dtype=torch.int32,
+                                  device=loss.device)))
+    return [loss] + tree_leaves(grads) + tree_leaves(new)
+
+
+def train_card_vs_cpu(arch) -> dict:
+    """One train step of ``arch`` at full width, cut to
+    ``TRAIN_PARITY_LAYERS``, batch ``TRAIN_PARITY_BATCH`` of
+    ``TRAIN_PARITY_SEQ`` tokens, on the card against the same step on
+    the CPU from the same f32 masters: the loss, every gradient and every
+    updated parameter in f64 elementwise at ``F64_TOL``, and in f32 (TF32
+    off) each by relative RMS within ``F32_GAP_RATIO`` times the CPU's own
+    f32 error on it (against its f64 result).  Every MoE call of the f64
+    runs routes the same on the card and the CPU; the f32 runs take those
+    picks (``routed``): at this width the router's f32 probabilities
+    differ from f64 by ~3e-5, more than the closest gaps between a
+    token's 8th and 9th expert, so each f32 run would break a near-tie
+    its own way and the two runs would part (the moved tokens are
+    reported).  The CPU runs first and its leaves are held on the card
+    one at a time."""
+    cfg = dataclasses.replace(get_arch(arch), n_layers=TRAIN_PARITY_LAYERS)
+    masters = cut_params(cfg, 1)
+    host = tree_map(lambda a: a.cpu(), masters)
+    n_params = sum(a.numel() for a in tree_leaves(host))
+    names = ["loss"] + [f"grad {n}" for n in leaf_names(host)] + \
+        [f"param {n}" for n in leaf_names(host)]
+    batch = SyntheticTokenPipeline(cfg, ShapeConfig(
+        "t", TRAIN_PARITY_SEQ, TRAIN_PARITY_BATCH, "train")).batch_for_step(0)
+    runs, picks, wall = {}, {}, {}
+    for name in ("float64", "float32"):
+        c = dataclasses.replace(cfg, dtype=name)
+        forced = picks["float64", "cpu"] if name == "float32" else None
+        for where, p, dev in (("cpu", host, torch.device("cpu")),
+                              ("card", masters, torch.device("cuda"))):
+            p = tree_map(lambda a: a.to(DTYPES[name]), p)
+            b = {k: torch.from_numpy(np.ascontiguousarray(v)).to(dev)
+                 for k, v in batch.items()}
+            t0 = time.perf_counter()
+            runs[name, where], picks[name, where] = routed(
+                lambda: train_step_leaves(c, p, b), forced)
+            torch.cuda.synchronize()
+            wall[f"{name}_{where}_s"] = time.perf_counter() - t0
+            del p, b
+    del masters, host
+    a, b = picks["float64", "card"], picks["float64", "cpu"]
+    if not (len(a) == len(b) and all(map(torch.equal, a, b))):
+        raise AssertionError(f"{arch}: the card and the CPU routed tokens "
+                             f"to other experts in f64")
+    # the f32 runs took the f64 picks; how many tokens their own picks
+    # would have moved (near-ties that f32 breaks the other way)
+    moved = {w: sum(int((x != y).any(-1).sum()) for x, y in zip(
+        picks["float32", w], b)) for w in ("card", "cpu")}
+    f64_err = max(hold(f"{arch} train step card vs cpu float64 {n}", g,
+                       w.to(g.device), F64_TOL)
+                  for n, g, w in zip(names, runs["float64", "card"],
+                                     runs["float64", "cpu"]))
+    worst = {"ratio": 0.0}
+    for n, g, w, e in zip(names, runs["float32", "card"],
+                          runs["float32", "cpu"], runs["float64", "cpu"]):
+        if not bool(torch.isfinite(g).all()):
+            raise AssertionError(f"{arch} train step on the card: {n} "
+                                 f"not finite")
+        gap, error = rel_rms(g, w.to(g.device)), rel_rms(w, e)
+        if not gap <= F32_GAP_RATIO * error:
+            raise AssertionError(f"{arch} train step card vs cpu float32 "
+                                 f"{n}: relative RMS {gap} above "
+                                 f"{F32_GAP_RATIO} x the CPU's f32 error "
+                                 f"{error}")
+        if gap / error > worst["ratio"]:
+            worst = {"leaf": n, "ratio": gap / error, "rel_rms": gap,
+                     "error": error}
+    loss32 = [float(runs["float32", w][0]) for w in ("card", "cpu")]
+    return {"n_layers": cfg.n_layers, "d_model": cfg.d_model,
+            "batch": TRAIN_PARITY_BATCH, "seq": TRAIN_PARITY_SEQ,
+            "params": n_params,
+            "leaves_held": len(names), "moe_calls": len(b),
+            "f64_routes_equal": True,
+            "f32_own_picks_moved_tokens": moved,
+            "float64": {"max_abs_err": f64_err, "tol": F64_TOL,
+                        "loss": float(runs["float64", "card"][0])},
+            "float32": {"loss_card_cpu": loss32,
+                        "limit_ratio": F32_GAP_RATIO, "worst": worst},
+            "wall_s": wall}
+
+
+def phase_train(drive, paths) -> dict:
+    """The training path of ``python -m repro_torch.launch.train`` at
+    qwen2-0.5b's full size: ``init_state``, the synthetic pipeline,
+    ``make_train_step`` and ``train_loop``; ``TRAIN_STEPS`` steps timed
+    with CUDA events after ``TRAIN_WARMUP`` (path ``train``), one more
+    under torch.profiler; every loss and grad norm finite; then the
+    restart at full size and one step of the card against the CPU at
+    full width for each of ``TRAIN_PARITY``."""
+    t_phase = time.perf_counter()
+    cfg = get_arch(TRAIN_ARCH)
+    seq = SHAPES["train_4k"].seq_len
+    pipe = SyntheticTokenPipeline(cfg, ShapeConfig("train", seq, TRAIN_BATCH,
+                                                   "train"))
+    total = TRAIN_WARMUP + TRAIN_STEPS + 1
+    step_fn = make_train_step(cfg, AdamWConfig(total_steps=total),
+                              microbatch=TRAIN_MICROBATCH)
+    torch.cuda.reset_peak_memory_stats()
+    params, opt = init_state(cfg, 0, "cuda")
+    weight_bytes = nbytes(tree_leaves(params))
+    opt_bytes = nbytes(tree_leaves(opt.mu) + tree_leaves(opt.nu))
+    infos = []
+
+    def run(start, stop):
+        nonlocal params, opt
+        params, opt, got = train_loop(step_fn, pipe, params, opt, start,
+                                      stop, "cuda", log=None)
+        infos.extend(got)
+
+    run(0, TRAIN_WARMUP)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    a, b = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+
+    def timed():
+        a.record()
+        run(TRAIN_WARMUP, TRAIN_WARMUP + TRAIN_STEPS)
+        b.record()
+
+    drive("train", timed)
+    ms = a.elapsed_time(b) / TRAIN_STEPS
+    peak = torch.cuda.max_memory_allocated()
+    assert all(v == 0 for v in paths["train"].values()), paths["train"]
+    busy_ms, kernels, top = device_trace(lambda: run(total - 1, total), 1)
+    del params, opt
+    torch.cuda.empty_cache()
+    losses = [i["loss"] for i in infos]
+    gnorms = [i["grad_norm"] for i in infos]
+    if not (all(math.isfinite(x) for x in losses + gnorms)
+            and all(g > 0 for g in gnorms)):
+        raise AssertionError(f"train: losses {losses}, grad norms {gnorms}")
+    t0 = time.perf_counter()
+    pipe.batch_for_step(0)
+    batch_ms = (time.perf_counter() - t0) * 1e3
+    flops = train_flops(cfg, TRAIN_BATCH, seq)
+    out = {"phase": "train", "entry": "repro_torch.launch.train "
+           "(init_state, SyntheticTokenPipeline, make_train_step, "
+           "train_loop)", "arch": cfg.name, "n_layers": cfg.n_layers,
+           "d_model": cfg.d_model, "params": cfg.param_count(),
+           "dtype": cfg.dtype, "seq": seq, "batch": TRAIN_BATCH,
+           "microbatch": TRAIN_MICROBATCH, "remat": True,
+           "weight_bytes": weight_bytes, "opt_state_bytes": opt_bytes,
+           "warmup_steps": TRAIN_WARMUP, "steps": TRAIN_STEPS,
+           "ms_per_step": ms,
+           "tokens_per_s": TRAIN_BATCH * seq / ms * 1e3,
+           "model_flops_per_step": flops,
+           "mfu": flops / (ms * 1e-3) / BF16_OPS_PER_S,
+           "max_memory_allocated_bytes": peak,
+           "profiled_steps": 1, "device_busy_ms_per_step": busy_ms,
+           "kernels_per_step": kernels, "top_kernels_ms_per_step": top,
+           "idle_share": 1.0 - busy_ms / ms,
+           "host_batch_ms": batch_ms,
+           "losses": losses, "grad_norms": gnorms,
+           "lr": [i["lr"] for i in infos],
+           "launches": paths["train"]}
+    assert (out["n_layers"], out["d_model"]) == (24, 896)
+    out["restart"] = train_restart(step_fn, pipe, cfg, losses)
+    torch.cuda.empty_cache()
+    out["card_vs_cpu"] = {}
+    for arch in TRAIN_PARITY:
+        out["card_vs_cpu"][arch] = train_card_vs_cpu(arch)
+        torch.cuda.empty_cache()
+    out["phase_s"] = time.perf_counter() - t_phase
     return out
 
 
@@ -1781,7 +2072,11 @@ def main() -> int:
     families = phase_serve_families(drive, paths)
     emit(families)
 
-    # ---- 9. kernels: each path launches its own kernels and no other;
+    # ---- 9. the training path at qwen2-0.5b's full size
+    torch.cuda.empty_cache()
+    emit(phase_train(drive, paths))
+
+    # ---- 10. kernels: each path launches its own kernels and no other;
     # the kernels line carries each kernel's count on its path and, for
     # the attention and scan kernels, the numbers of the first (bf16)
     # case at the widths above

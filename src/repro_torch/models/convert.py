@@ -1,4 +1,5 @@
-"""Carry model weights across packages as plain values.
+"""Carry model weights and optimizer state across packages as plain
+values.
 
 The JAX reference's parameter tree, read out as numpy (``jax.tree.map(
 np.asarray, params)``), becomes this package's tree of tensors with the
@@ -33,3 +34,14 @@ def params_from_jax(tree: Tree, device: Union[str, torch.device],
     ``device``, in ``dtype`` where given, else in each leaf's own."""
     dev = torch.device(device)
     return tree_map(lambda a: _leaf(a, dev, dtype), tree)
+
+
+def opt_state_from_jax(state: Any, device: Union[str, torch.device]):
+    """The reference's ``OptState`` (numpy leaves, as ``jax.tree.map(
+    np.asarray, opt)`` gives) as the port's, on ``device``, bit for
+    bit: ``mu`` and ``nu`` trees and the int32 ``step``."""
+    from ..optim.adamw import OptState
+    dev = torch.device(device)
+    return OptState(params_from_jax(state.mu, dev),
+                    params_from_jax(state.nu, dev),
+                    _leaf(state.step, dev, None))

@@ -255,34 +255,34 @@ def _one_hot(idx: torch.Tensor, n: int,
 
 
 # -------------------------------------------------------------------- moe
-def moe_route(cfg: ModelConfig, p: Params, x: torch.Tensor
-              ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
-    """The MoE's routing: tokens in groups of ``MOE_GROUP``, each group
-    dispatching to per-expert capacity ``C = top_k * G / E * 1.25``.
-
-    Router logits in x's dtype, softmax in f32, the top k by a stable
-    descending sort (ties to the lower index, as ``jax.lax.top_k``), gate
-    values renormalised; each pick's slot is the exclusive count of
-    earlier picks of its expert over the group's picks, token-major and
-    slot-minor, and a pick past the capacity is dropped.  Returns the
-    picked experts (n, G, k) and the dispatch and combine masks
-    (n, G, E, C), f32."""
+def _router_probs(cfg: ModelConfig, p: Params, x: torch.Tensor
+                  ) -> Tuple[torch.Tensor, int]:
+    """The router's probabilities (n, G, E), f32, of x's tokens in groups
+    of ``MOE_GROUP``, and the per-expert capacity ``C = top_k * G / E *
+    1.25``."""
     B, S, D = x.shape
     E, k = cfg.n_experts, cfg.top_k
     G = min(MOE_GROUP, B * S)
-    n_groups = B * S // G
     C = max(1, int(k * G / E * MOE_CAPACITY_FACTOR))
+    logits = torch.einsum("ngd,de->nge", x.reshape(B * S // G, G, D),
+                          p["w_router"].to(x.dtype))
+    return torch.softmax(_f32(logits), dim=-1), C
 
-    xt = x.reshape(n_groups, G, D)
-    logits = torch.einsum("ngd,de->nge", xt, p["w_router"].to(x.dtype))
-    probs = torch.softmax(_f32(logits), dim=-1)
-    vals, idx = torch.sort(probs, dim=-1, descending=True, stable=True)
-    gate_vals, gate_idx = vals[..., :k], idx[..., :k]       # (n, G, k)
+
+def _dispatch(probs: torch.Tensor, gate_idx: torch.Tensor,
+              C: int) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The dispatch and combine masks (n, G, E, C), f32, of the picks
+    ``gate_idx`` (n, G, k): gates are the picks' probabilities,
+    renormalised; each pick's slot is the exclusive count of earlier
+    picks of its expert over the group's picks, token-major and
+    slot-minor, and a pick past the capacity is dropped."""
+    n, G, k = gate_idx.shape
+    E = probs.shape[-1]
+    gate_vals = probs.gather(-1, gate_idx)
     gate_vals = gate_vals / gate_vals.sum(-1, keepdim=True)
-
     onehot = _one_hot(gate_idx, E, probs.dtype)              # (n,G,k,E)
-    flat = onehot.reshape(n_groups, G * k, E)
-    pos = (torch.cumsum(flat, dim=1) - flat).reshape(n_groups, G, k, E)
+    flat = onehot.reshape(n, G * k, E)
+    pos = (torch.cumsum(flat, dim=1) - flat).reshape(n, G, k, E)
     pos_sel = (pos * onehot).sum(-1)                         # (n,G,k)
     keep = pos_sel < C
     cap_oh = _one_hot(pos_sel.to(torch.int32), C, probs.dtype) \
@@ -290,7 +290,22 @@ def moe_route(cfg: ModelConfig, p: Params, x: torch.Tensor
     disp = torch.einsum("ngke,ngkc->ngec", onehot, cap_oh)
     comb = torch.einsum("ngke,ngkc->ngec", onehot * gate_vals[..., None],
                         cap_oh)
-    return gate_idx, disp, comb
+    return disp, comb
+
+
+def moe_route(cfg: ModelConfig, p: Params, x: torch.Tensor
+              ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """The MoE's routing: tokens in groups of ``MOE_GROUP``, each group
+    dispatching to per-expert capacity ``C`` (:func:`_router_probs`).
+
+    Router logits in x's dtype, softmax in f32, the top k by a stable
+    descending sort (ties to the lower index, as ``jax.lax.top_k``), the
+    masks by :func:`_dispatch`.  Returns the picked experts (n, G, k)
+    and the dispatch and combine masks (n, G, E, C), f32."""
+    probs, C = _router_probs(cfg, p, x)
+    _, idx = torch.sort(probs, dim=-1, descending=True, stable=True)
+    gate_idx = idx[..., :cfg.top_k]                          # (n, G, k)
+    return (gate_idx, *_dispatch(probs, gate_idx, C))
 
 
 def moe(cfg: ModelConfig, p: Params, x: torch.Tensor) -> torch.Tensor:

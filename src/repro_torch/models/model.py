@@ -4,20 +4,23 @@ an MLP or a GShard MoE), the attention-free ``ssm`` (Mamba-1), the
 ``hybrid`` (groups of Mamba-2 layers, each group followed by one
 attention and MLP block whose weights all groups share, with a KV cache
 of its own per group) and the encoder-only ``audio``, which has no
-decode step.
+decode step; ``loss_fn``, the training loss.
 
 The reference scans a stacked layer axis; here a Python loop walks it,
 one layer's views at a time (the hybrid's two axes, group and layer, by
 two loops).  A decode step writes the new token's k and v, and each SSM
 layer's next state, into the cache in place and returns the same cache
-dict.
+dict.  ``forward(remat=True)`` recomputes each layer's activations in
+the backward pass (``torch.utils.checkpoint``), as the reference's
+``jax.checkpoint`` does; the embedding's gradient is the reference's
+custom one (:class:`_EmbedLookup`).
 """
 from __future__ import annotations
 
-from typing import Any, Dict, List, Tuple, Union
+from typing import Any, Callable, Dict, List, Tuple, Union
 
 import torch
-import torch.nn.functional as F
+from torch.utils.checkpoint import checkpoint
 
 from ..configs.base import ModelConfig
 from .layers import _f32, attention, mamba1, mamba2, mlp, moe, rms_norm
@@ -50,12 +53,38 @@ def layer_params(blocks: Tree, n_layers: int) -> List[Tree]:
     return [tree_map(lambda a, i=i: a[i], blocks) for i in range(n_layers)]
 
 
+class _EmbedLookup(torch.autograd.Function):
+    """The embedding lookup with the reference's custom gradient
+    (``_embed_lookup_for``): forward, a row gather; backward, the rows'
+    cotangents added into a zero (V, D) table in f32 (f64 in an f64
+    model), then cast to the table's dtype.  ``F.embedding``'s backward
+    adds them in the table's dtype, which on a bf16 table rounds after
+    every repeated token where the reference rounds once."""
+
+    @staticmethod
+    def forward(ctx, table: torch.Tensor,
+                tokens: torch.Tensor) -> torch.Tensor:
+        ctx.save_for_backward(tokens)
+        ctx.table_shape, ctx.table_dtype = table.shape, table.dtype
+        return table.index_select(0, tokens.reshape(-1)).reshape(
+            *tokens.shape, table.shape[1])
+
+    @staticmethod
+    def backward(ctx, g: torch.Tensor):
+        tokens, = ctx.saved_tensors
+        V, D = ctx.table_shape
+        acc = torch.promote_types(ctx.table_dtype, torch.float32)
+        dtable = torch.zeros((V, D), dtype=acc, device=g.device)
+        dtable.index_add_(0, tokens.reshape(-1), g.reshape(-1, D).to(acc))
+        return dtable.to(ctx.table_dtype), None
+
+
 def _embed_tokens(cfg: ModelConfig, params: Tree,
                   batch: Tree) -> torch.Tensor:
     f = _dtype(cfg)
     if cfg.embed_inputs:
         return batch["embeds"].to(f)
-    x = F.embedding(batch["tokens"].long(), params["embed"]).to(f)
+    x = _EmbedLookup.apply(params["embed"], batch["tokens"].long()).to(f)
     if cfg.vision_prefix and "vision_embeds" in batch:
         ve = batch["vision_embeds"].to(f)
         x = torch.cat([ve, x[:, ve.shape[1]:]], dim=1)
@@ -105,27 +134,62 @@ def _logits(cfg: ModelConfig, params: Tree, x: torch.Tensor) -> torch.Tensor:
     return _f32(torch.einsum("bsd,vd->bsv", x, head))
 
 
-def forward(cfg: ModelConfig, params: Tree, batch: Tree) -> torch.Tensor:
-    """Full-sequence forward -> logits (B, S, V) in f32."""
+def _remat(fn: Callable[..., torch.Tensor],
+           remat: bool) -> Callable[..., torch.Tensor]:
+    """``fn``, or, with ``remat``, ``fn`` under activation checkpointing:
+    only its inputs are kept for the backward pass, which runs it again.
+    The model draws no random numbers, so no RNG state is stashed."""
+    if not remat:
+        return fn
+    return lambda *a: checkpoint(fn, *a, use_reentrant=False,
+                                 preserve_rng_state=False)
+
+
+def forward(cfg: ModelConfig, params: Tree, batch: Tree,
+            remat: bool = False) -> torch.Tensor:
+    """Full-sequence forward -> logits (B, S, V) in f32.  ``remat``
+    checkpoints each layer (the hybrid: each Mamba-2 layer, and each
+    group with its shared block), which changes memory, not values."""
     params = _cast(params, _dtype(cfg))
     x = _embed_tokens(cfg, params, batch)
     B, S, _ = x.shape
     positions = torch.arange(S, dtype=torch.int32,
                              device=x.device).expand(B, S)
     if cfg.family in ("dense", "vlm", "audio", "moe"):
+        body = _remat(lambda h, p: _dense_block(cfg, p, h, positions), remat)
         for p in layer_params(params["blocks"], cfg.n_layers):
-            x = _dense_block(cfg, p, x, positions)
+            x = body(x, p)
     elif cfg.family == "ssm":
+        body = _remat(lambda h, p: _ssm_block(cfg, p, h), remat)
         for p in layer_params(params["blocks"], cfg.n_layers):
-            x = _ssm_block(cfg, p, x)
+            x = body(x, p)
     elif cfg.family == "hybrid":
-        for group in _groups(cfg, params["blocks"]):
+        inner = _remat(lambda h, p: _mamba2_block(cfg, p, h), remat)
+
+        def group_fn(h: torch.Tensor, group: List[Tree]) -> torch.Tensor:
             for p in group:
-                x = _mamba2_block(cfg, p, x)
-            x = _dense_block(cfg, params["shared"], x, positions)
+                h = inner(h, p)
+            return _dense_block(cfg, params["shared"], h, positions)
+
+        group_fn = _remat(group_fn, remat)
+        for group in _groups(cfg, params["blocks"]):
+            x = group_fn(x, group)
     else:
         raise ValueError(cfg.family)
     return _logits(cfg, params, x)
+
+
+def loss_fn(cfg: ModelConfig, params: Tree, batch: Tree,
+            remat: bool = True) -> torch.Tensor:
+    """Mean next-token cross entropy, ``mean(logsumexp(logits) - gold)``.
+    The reference takes ``gold`` by a one-hot contraction (to keep the
+    vocab axis sharded); a one-hot row has one nonzero term, so the
+    gather here is the same number bit for bit, without a second
+    (B, S, V) f32 tensor (5 GB at qwen2-0.5b, B 2, S 4096)."""
+    logits = forward(cfg, params, batch, remat=remat)
+    logz = torch.logsumexp(logits, dim=-1)
+    gold = logits.gather(-1, batch["labels"].long()[..., None])[..., 0]
+    return (logz - gold).mean()
 
 
 # ------------------------------------------------------------------ decode

@@ -147,11 +147,13 @@ def param_specs(cfg: ModelConfig) -> Tree:
     return specs
 
 
-def tree_map(fn: Callable[[Any], Any], tree: Tree) -> Tree:
-    """``fn`` applied to every leaf of a nested dict, keys kept, leaf by
-    leaf in :func:`tree_leaves`' order."""
-    return {k: tree_map(fn, tree[k]) if isinstance(tree[k], dict)
-            else fn(tree[k]) for k in sorted(tree)}
+def tree_map(fn: Callable[..., Any], tree: Tree, *rest: Tree) -> Tree:
+    """``fn`` applied to every leaf of a nested dict (with the leaves at
+    the same keys of ``rest``, trees of the same structure), keys kept,
+    leaf by leaf in :func:`tree_leaves`' order."""
+    return {k: tree_map(fn, tree[k], *(r[k] for r in rest))
+            if isinstance(tree[k], dict)
+            else fn(tree[k], *(r[k] for r in rest)) for k in sorted(tree)}
 
 
 def tree_leaves(tree: Tree) -> List[Any]:

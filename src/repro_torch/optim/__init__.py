@@ -1,0 +1,7 @@
+from .adamw import (AdamWConfig, OptState, adamw_update, global_norm,
+                    init_opt_state, opt_state_specs)
+from .compress import compress_grads, decompress_grads
+
+__all__ = ["AdamWConfig", "OptState", "adamw_update", "global_norm",
+           "init_opt_state", "opt_state_specs", "compress_grads",
+           "decompress_grads"]

@@ -1,0 +1,106 @@
+"""AdamW with global-norm clipping and a linear-warmup cosine schedule,
+the twin of :mod:`repro.optim.adamw` (not ``torch.optim.AdamW``, which
+places the weight decay and the bias correction differently).
+
+The state is ``OptState(mu, nu, step)``: ``mu`` and ``nu`` are f32 trees
+shaped like the parameters (f64 for f64 parameters, the exact witness
+of the f32 checks), ``step`` an int32 scalar.  Every function maps
+trees to new trees and writes nothing it was given.  The schedule and
+the bias corrections are f32 tensor arithmetic, as the reference
+computes them.
+"""
+from __future__ import annotations
+
+import dataclasses
+import math
+from typing import Dict, NamedTuple, Tuple
+
+import torch
+
+from ..configs.base import ModelConfig
+from ..models.params import ParamSpec, Tree, param_specs, tree_leaves, \
+    tree_map
+
+
+class OptState(NamedTuple):
+    mu: Tree
+    nu: Tree
+    step: torch.Tensor
+
+
+@dataclasses.dataclass(frozen=True)
+class AdamWConfig:
+    lr: float = 3e-4
+    b1: float = 0.9
+    b2: float = 0.95
+    eps: float = 1e-8
+    weight_decay: float = 0.1
+    clip_norm: float = 1.0
+    warmup_steps: int = 100
+    total_steps: int = 10000
+
+
+def _wide(dtype: torch.dtype) -> torch.dtype:
+    """The dtype the optimizer computes a leaf of ``dtype`` in: f32, or
+    f64 for an f64 leaf."""
+    return torch.promote_types(dtype, torch.float32)
+
+
+def init_opt_state(params: Tree) -> OptState:
+    z = tree_map(lambda p: torch.zeros_like(p, dtype=_wide(p.dtype)),
+                 params)
+    device = tree_leaves(params)[0].device
+    return OptState(z, tree_map(torch.clone, z),
+                    torch.zeros((), dtype=torch.int32, device=device))
+
+
+def opt_state_specs(cfg: ModelConfig) -> OptState:
+    """ParamSpec trees (for shardings) mirroring the parameter layout."""
+    f32 = tree_map(lambda s: ParamSpec(s.shape, s.axes, s.init,
+                                       torch.float32), param_specs(cfg))
+    return OptState(f32, tree_map(lambda s: s, f32), ParamSpec((), ()))
+
+
+def _schedule(cfg: AdamWConfig, step: torch.Tensor) -> torch.Tensor:
+    step = step.to(torch.float32)
+    warm = torch.clamp_max((step + 1.0) / cfg.warmup_steps, 1.0)
+    t = torch.clamp((step - cfg.warmup_steps) /
+                    max(1, cfg.total_steps - cfg.warmup_steps), 0.0, 1.0)
+    return cfg.lr * warm * 0.5 * (1.0 + torch.cos(math.pi * t))
+
+
+def global_norm(tree: Tree) -> torch.Tensor:
+    """sqrt of the sum of squares of every leaf (in f32, f64 for f64
+    leaves), the leaves summed in :func:`tree_leaves` order."""
+    return torch.sqrt(sum(torch.sum(g.to(_wide(g.dtype)) ** 2)
+                          for g in tree_leaves(tree)))
+
+
+@torch.no_grad()
+def adamw_update(opt_cfg: AdamWConfig, params: Tree, grads: Tree,
+                 state: OptState
+                 ) -> Tuple[Tree, OptState, Dict[str, torch.Tensor]]:
+    gnorm = global_norm(grads)
+    scale = torch.clamp_max(opt_cfg.clip_norm / (gnorm + 1e-9), 1.0)
+    step = state.step + 1
+    lr = _schedule(opt_cfg, state.step)
+    b1, b2 = opt_cfg.b1, opt_cfg.b2
+    t = step.to(torch.float32)
+    bc1 = 1.0 - b1 ** t
+    bc2 = 1.0 - b2 ** t
+
+    def leaf(p: torch.Tensor, g: torch.Tensor, m: torch.Tensor,
+             v: torch.Tensor) -> Tuple[torch.Tensor, ...]:
+        g = g.to(_wide(g.dtype)) * scale
+        m = b1 * m + (1 - b1) * g
+        v = b2 * v + (1 - b2) * g * g
+        u = (m / bc1) / (torch.sqrt(v / bc2) + opt_cfg.eps)
+        pw = p.to(_wide(p.dtype))
+        u = u + opt_cfg.weight_decay * pw
+        return (pw - lr * u).to(p.dtype), m, v
+
+    # leaf by leaf, so each leaf's temporaries are freed before the next
+    new = tree_map(leaf, params, grads, state.mu, state.nu)
+    pick = lambda i: tree_map(lambda r: r[i], new)      # noqa: E731
+    return pick(0), OptState(pick(1), pick(2), step), \
+        {"grad_norm": gnorm, "lr": lr}

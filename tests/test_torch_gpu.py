@@ -652,3 +652,99 @@ def test_ssm_decode_matches_forward_on_card(name, card):
                                      torch.full((2,), t, device=card))[0][:, 0]
                        for t in range(16)], 1)
     torch.testing.assert_close(dec, full, rtol=1e-4, atol=1e-4)
+
+
+def _one_train_step(cfg, params, batch):
+    """One train step split as ``make_train_step`` runs it: the loss and
+    gradients (remat on), then AdamW from a fresh state.  Returns the
+    loss, the gradient leaves and the updated parameter leaves."""
+    from repro_torch.models.params import tree_leaves
+    from repro_torch.optim import AdamWConfig, adamw_update, init_opt_state
+    from repro_torch.train import loss_and_grads
+
+    loss, grads = loss_and_grads(cfg, params, batch)
+    new, _, _ = adamw_update(AdamWConfig(), params, grads,
+                             init_opt_state(params))
+    return loss, tree_leaves(grads), tree_leaves(new)
+
+
+def _rel_rms(a, b):
+    """Relative RMS error; a zero ``b`` must be met by a zero ``a``."""
+    a, b = a.double(), b.double()
+    if not b.any():
+        return 0.0 if not a.any() else float("inf")
+    return float((a - b).norm() / b.norm())
+
+
+@pytest.mark.parametrize("name", ["qwen2-0.5b", "olmoe-1b-7b"])
+def test_train_step_on_card_equals_cpu(name, card):
+    """One train step at a reduced size on the card against the CPU on
+    the same f32 masters and batch: in f64 the loss, every gradient and
+    every updated parameter within 1e-9 elementwise; in f32 (TF32 off)
+    each by relative RMS within 3 times the CPU's own f32 error on it
+    (against its f64 result), chip_smoke.py's ``F32_GAP_RATIO``."""
+    import dataclasses
+
+    from repro_torch.configs import get_arch, reduced_config
+    from repro_torch.configs.base import ShapeConfig
+    from repro_torch.data import SyntheticTokenPipeline
+    from repro_torch.models.params import init_params, tree_map
+
+    cfg = reduced_config(get_arch(name))
+    masters = init_params(cfg, torch.Generator().manual_seed(0), "cpu")
+    pipe = SyntheticTokenPipeline(cfg, ShapeConfig("t", 32, 2, "train"))
+    out = {}
+    for dt, tdt in (("float64", torch.float64), ("float32", torch.float32)):
+        c = dataclasses.replace(cfg, dtype=dt)
+        for where, dev in (("cpu", torch.device("cpu")), ("card", card)):
+            loss, grads, new = _one_train_step(
+                c, tree_map(lambda a: a.to(dev, tdt), masters),
+                pipe.device_batch(0, dev))
+            out[dt, where] = [loss.cpu()] + [a.cpu() for a in grads + new]
+    for g, w in zip(out["float64", "card"], out["float64", "cpu"]):
+        torch.testing.assert_close(g, w, rtol=1e-9, atol=1e-9)
+    for g, w, e in zip(out["float32", "card"], out["float32", "cpu"],
+                       out["float64", "cpu"]):
+        assert bool(torch.isfinite(g).all())
+        assert _rel_rms(g, w) <= 3.0 * _rel_rms(w, e)
+
+
+def test_train_restart_exact_on_card(card, tmp_path):
+    """Six steps straight against three steps, a save and restore through
+    the port's checkpoint, and three more, on the card (the reference's
+    ``test_train_restart_exact`` at its size and rtol; f32 atomics in the
+    embedding's gradient make it not bit for bit)."""
+    import dataclasses
+
+    from repro_torch.configs import get_arch, reduced_config
+    from repro_torch.configs.base import ShapeConfig
+    from repro_torch.data import SyntheticTokenPipeline
+    from repro_torch.launch import train as LT
+    from repro_torch.optim import AdamWConfig
+    from repro_torch.train import make_train_step
+
+    cfg = dataclasses.replace(reduced_config(get_arch("qwen2-0.5b")),
+                              n_layers=2, d_model=64, vocab=128)
+    pipe = SyntheticTokenPipeline(cfg, ShapeConfig("t", 32, 2, "train"))
+    step = make_train_step(cfg, AdamWConfig(warmup_steps=2, total_steps=6))
+    p, o = LT.init_state(cfg, 0, "cuda")
+    *_, straight = LT.train_loop(step, pipe, p, o, 0, 6, "cuda", log=None)
+    p, o = LT.init_state(cfg, 0, "cuda")
+    LT.train_loop(step, pipe, p, o, 0, 3, "cuda", str(tmp_path), 3,
+                  log=None)
+    p, o, start = LT.resume(str(tmp_path), p, o, "cuda")
+    assert start == 3 and int(o.step) == 3 and o.step.is_cuda
+    *_, rest = LT.train_loop(step, pipe, p, o, 3, 6, "cuda", log=None)
+    np.testing.assert_allclose([i["loss"] for i in rest],
+                               [i["loss"] for i in straight[3:]], rtol=1e-5)
+
+
+def test_train_launcher_on_card(card, capsys):
+    """``python -m repro_torch.launch.train`` on the card at a reduced
+    size: every loss finite."""
+    from repro_torch.launch import train as LT
+
+    losses = LT.main(["--arch", "qwen2-0.5b", "--reduced", "--steps", "3",
+                      "--seq", "32", "--microbatch", "2"])
+    assert len(losses) == 3 and all(np.isfinite(losses))
+    assert "on cuda" in capsys.readouterr().out
