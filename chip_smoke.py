@@ -135,6 +135,8 @@ from repro_torch.kernels.flash_attention.ref import \
 from repro_torch.kernels.ssm_scan import kernel as SS  # noqa: E402
 from repro_torch.kernels.ssm_scan.ops import selective_scan  # noqa: E402
 from repro_torch.kernels.ssm_scan.ref import selective_scan_ref  # noqa: E402
+from repro_torch.checkpoint.checkpoint import \
+    _paths as ckpt_paths  # noqa: E402
 from repro_torch.data import SyntheticTokenPipeline  # noqa: E402
 from repro_torch.launch.serve import build_engine  # noqa: E402
 from repro_torch.launch.train import (init_state, resume,  # noqa: E402
@@ -1195,7 +1197,8 @@ def routed(fn, picks=None):
             return idx, disp, comb
         forced = picks[len(kept) - 1].to(idx.device)
         probs, C = L._router_probs(cfg, p, x)
-        return (forced, *L._dispatch(probs, forced, C))
+        return (forced, *L._dispatch(probs.gather(-1, forced), forced,
+                                     cfg.n_experts, C))
 
     L.moe_route = route
     try:
@@ -1536,15 +1539,18 @@ def train_restart(step_fn, pipe, cfg, straight) -> dict:
     """The launcher's restart at full size: ``TRAIN_RESTART`` steps from a
     fresh state with a checkpoint after the last (the launcher's
     ``train_loop``, under the checkout's build/), ``resume`` into a tree
-    of the state's structure, as many more steps; every loss against the
-    straight run's at ``TRAIN_RESTART_RTOL``."""
+    of the state's structure, as many more steps.  The restored params,
+    mu, nu and step equal the state that was saved bit for bit, and
+    every loss equals the straight run's at ``TRAIN_RESTART_RTOL``.  As
+    a control, how many of the saved leaves differ from a fresh state's
+    (a restore of step 0, or mu and nu reset, would equal those)."""
     ck = ROOT / "build" / "train_ckpt"
     shutil.rmtree(ck, ignore_errors=True)
     n = TRAIN_RESTART
     params, opt = init_state(cfg, 0, "cuda")
     t0 = time.perf_counter()
-    params, opt, first = train_loop(step_fn, pipe, params, opt, 0, n, "cuda",
-                                    str(ck), n, log=None)
+    saved = train_loop(step_fn, pipe, params, opt, 0, n, "cuda", str(ck), n,
+                       log=None)
     loop_s = time.perf_counter() - t0
     ckpt_bytes = sum(f.stat().st_size for f in ck.rglob("*.npy"))
     del params, opt
@@ -1556,6 +1562,19 @@ def train_restart(step_fn, pipe, cfg, straight) -> dict:
     torch.cuda.synchronize()
     restore_s = time.perf_counter() - t0
     assert start == n and int(opt.step) == n, (start, opt.step)
+    first = saved[2]
+    got, was, fresh = ([leaf for _, leaf in ckpt_paths({"p": t[0], "o": t[1]})]
+                       for t in ((params, opt), saved,
+                                 init_state(cfg, 0, "cuda")))
+    unequal = [i for i, (g, w) in enumerate(zip(got, was))
+               if not torch.equal(g, w)]
+    if len(got) != len(was) or unequal:
+        raise AssertionError(f"restart: {len(unequal)} of {len(was)} "
+                             f"restored leaves (params, mu, nu, step) differ "
+                             f"from the saved state's, first {unequal[:1]}")
+    n_leaves = len(was)
+    unlike_fresh = sum(not torch.equal(w, f) for w, f in zip(was, fresh))
+    del saved, got, was, fresh
     params, opt, rest = train_loop(step_fn, pipe, params, opt, n, 2 * n,
                                    "cuda", log=None)
     del params, opt
@@ -1569,14 +1588,16 @@ def train_restart(step_fn, pipe, cfg, straight) -> dict:
             "max_rel_err": max(abs(g - w) / abs(w)
                                for g, w in zip(got, want)),
             "rtol": TRAIN_RESTART_RTOL, "checkpoint_bytes": ckpt_bytes,
+            "state_leaves_bit_equal": len(unequal) == 0,
+            "state_leaves": n_leaves,
+            "state_leaves_unlike_fresh_state": unlike_fresh,
             "steps_and_save_s": loop_s, "restore_s": restore_s}
 
 
-def leaf_names(tree, prefix=""):
-    """The leaves' key paths, in ``tree_leaves`` order."""
-    return [n for k in sorted(tree) for n in (
-        leaf_names(tree[k], f"{prefix}{k}/") if isinstance(tree[k], dict)
-        else [prefix + k])]
+def leaf_names(tree):
+    """The leaves' key paths, in ``tree_leaves`` order (the checkpoint's
+    file names without their prefix)."""
+    return ["/".join(path) for path, _ in ckpt_paths(tree)]
 
 
 def train_step_leaves(cfg, params, batch):

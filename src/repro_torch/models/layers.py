@@ -269,23 +269,21 @@ def _router_probs(cfg: ModelConfig, p: Params, x: torch.Tensor
     return torch.softmax(_f32(logits), dim=-1), C
 
 
-def _dispatch(probs: torch.Tensor, gate_idx: torch.Tensor,
+def _dispatch(gate_vals: torch.Tensor, gate_idx: torch.Tensor, E: int,
               C: int) -> Tuple[torch.Tensor, torch.Tensor]:
     """The dispatch and combine masks (n, G, E, C), f32, of the picks
-    ``gate_idx`` (n, G, k): gates are the picks' probabilities,
-    renormalised; each pick's slot is the exclusive count of earlier
-    picks of its expert over the group's picks, token-major and
+    ``gate_idx`` (n, G, k) with their probabilities ``gate_vals``: gates
+    are those renormalised; each pick's slot is the exclusive count of
+    earlier picks of its expert over the group's picks, token-major and
     slot-minor, and a pick past the capacity is dropped."""
     n, G, k = gate_idx.shape
-    E = probs.shape[-1]
-    gate_vals = probs.gather(-1, gate_idx)
     gate_vals = gate_vals / gate_vals.sum(-1, keepdim=True)
-    onehot = _one_hot(gate_idx, E, probs.dtype)              # (n,G,k,E)
+    onehot = _one_hot(gate_idx, E, gate_vals.dtype)          # (n,G,k,E)
     flat = onehot.reshape(n, G * k, E)
     pos = (torch.cumsum(flat, dim=1) - flat).reshape(n, G, k, E)
     pos_sel = (pos * onehot).sum(-1)                         # (n,G,k)
     keep = pos_sel < C
-    cap_oh = _one_hot(pos_sel.to(torch.int32), C, probs.dtype) \
+    cap_oh = _one_hot(pos_sel.to(torch.int32), C, gate_vals.dtype) \
         * keep[..., None]
     disp = torch.einsum("ngke,ngkc->ngec", onehot, cap_oh)
     comb = torch.einsum("ngke,ngkc->ngec", onehot * gate_vals[..., None],
@@ -303,9 +301,10 @@ def moe_route(cfg: ModelConfig, p: Params, x: torch.Tensor
     masks by :func:`_dispatch`.  Returns the picked experts (n, G, k)
     and the dispatch and combine masks (n, G, E, C), f32."""
     probs, C = _router_probs(cfg, p, x)
-    _, idx = torch.sort(probs, dim=-1, descending=True, stable=True)
-    gate_idx = idx[..., :cfg.top_k]                          # (n, G, k)
-    return (gate_idx, *_dispatch(probs, gate_idx, C))
+    vals, idx = torch.sort(probs, dim=-1, descending=True, stable=True)
+    k = cfg.top_k
+    gate_idx = idx[..., :k]                                  # (n, G, k)
+    return (gate_idx, *_dispatch(vals[..., :k], gate_idx, cfg.n_experts, C))
 
 
 def moe(cfg: ModelConfig, p: Params, x: torch.Tensor) -> torch.Tensor:

@@ -654,26 +654,17 @@ def test_ssm_decode_matches_forward_on_card(name, card):
     torch.testing.assert_close(dec, full, rtol=1e-4, atol=1e-4)
 
 
-def _one_train_step(cfg, params, batch):
-    """One train step split as ``make_train_step`` runs it: the loss and
-    gradients (remat on), then AdamW from a fresh state.  Returns the
-    loss, the gradient leaves and the updated parameter leaves."""
-    from repro_torch.models.params import tree_leaves
-    from repro_torch.optim import AdamWConfig, adamw_update, init_opt_state
-    from repro_torch.train import loss_and_grads
+def _smoke():
+    """``chip_smoke.py`` as a module (it imports only the port): its
+    train-step split and error measure, which its card checks use."""
+    import importlib.util
+    from pathlib import Path
 
-    loss, grads = loss_and_grads(cfg, params, batch)
-    new, _, _ = adamw_update(AdamWConfig(), params, grads,
-                             init_opt_state(params))
-    return loss, tree_leaves(grads), tree_leaves(new)
-
-
-def _rel_rms(a, b):
-    """Relative RMS error; a zero ``b`` must be met by a zero ``a``."""
-    a, b = a.double(), b.double()
-    if not b.any():
-        return 0.0 if not a.any() else float("inf")
-    return float((a - b).norm() / b.norm())
+    spec = importlib.util.spec_from_file_location(
+        "chip_smoke", Path(__file__).resolve().parents[1] / "chip_smoke.py")
+    smoke = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(smoke)
+    return smoke
 
 
 @pytest.mark.parametrize("name", ["qwen2-0.5b", "olmoe-1b-7b"])
@@ -693,20 +684,20 @@ def test_train_step_on_card_equals_cpu(name, card):
     cfg = reduced_config(get_arch(name))
     masters = init_params(cfg, torch.Generator().manual_seed(0), "cpu")
     pipe = SyntheticTokenPipeline(cfg, ShapeConfig("t", 32, 2, "train"))
-    out = {}
+    smoke, out = _smoke(), {}
     for dt, tdt in (("float64", torch.float64), ("float32", torch.float32)):
         c = dataclasses.replace(cfg, dtype=dt)
         for where, dev in (("cpu", torch.device("cpu")), ("card", card)):
-            loss, grads, new = _one_train_step(
+            out[dt, where] = [a.cpu() for a in smoke.train_step_leaves(
                 c, tree_map(lambda a: a.to(dev, tdt), masters),
-                pipe.device_batch(0, dev))
-            out[dt, where] = [loss.cpu()] + [a.cpu() for a in grads + new]
+                pipe.device_batch(0, dev))]
     for g, w in zip(out["float64", "card"], out["float64", "cpu"]):
         torch.testing.assert_close(g, w, rtol=1e-9, atol=1e-9)
     for g, w, e in zip(out["float32", "card"], out["float32", "cpu"],
                        out["float64", "cpu"]):
         assert bool(torch.isfinite(g).all())
-        assert _rel_rms(g, w) <= 3.0 * _rel_rms(w, e)
+        assert smoke.rel_rms(g, w) <= \
+            smoke.F32_GAP_RATIO * smoke.rel_rms(w, e)
 
 
 def test_train_restart_exact_on_card(card, tmp_path):
