@@ -73,7 +73,21 @@ CPU at full width (2 layers, batch 2, seq 512) for qwen2-0.5b and
 olmoe-1b-7b: the loss, every gradient and every updated parameter in
 f64 elementwise at 1e-9, and in f32 (TF32 off) by relative RMS within
 ``F32_GAP_RATIO`` times the CPU's own f32 error, with the MoE's routing
-equal in f64 (the f32 runs take the f64 picks).
+equal in f64 (the f32 runs take the f64 picks).  Phase ``mesh`` drives
+the sharding path: the launcher's ``--mesh 1x1`` (a one-rank NCCL
+group, a DeviceMesh, every parameter, optimizer leaf and batch input a
+DTensor) for 3 steps at the train phase's size and seed, held to the
+train phase's first steps (losses at the restart rtol, grad norms at
+1e-3, and whether each is bit for bit) with ms a step beside the
+mesh-less step; the loss head against ``torch.logsumexp`` and
+``gather`` bit for bit; the dry run (``launch/dryrun.py``) at full size
+on meta tensors in a process that sees no card (dbrx-132b decode_32k on
+the 16 x 16 pod, dbrx-132b train_4k on the 2 x 16 x 16 multi-pod,
+qwen3-8b train_4k on the pod: each rank's bytes under the card's
+memory, no all-gather of a train cell's logits); and 4 CPU ranks (gloo,
+2 x 2) at full width, 2 layers, f64, one train step of qwen2-0.5b and
+olmoe-1b-7b held to the same step on one rank (the card, no mesh) at
+1e-10 relative by norm.
 bf16 attention must go to the tensor-core kernel and f32 to the
 CUDA-core one, bf16 with q, k and v scaled by 8 must hold the elementwise
 bf16 tolerance, and each attention case is timed warm and with the L2
@@ -101,6 +115,7 @@ import asyncio
 import dataclasses
 import json
 import math
+import os
 import re
 import shutil
 import subprocess
@@ -114,7 +129,10 @@ sys.path.insert(0, str(ROOT / "src"))
 
 import numpy as np  # noqa: E402
 import torch  # noqa: E402
+import torch.distributed as dist  # noqa: E402
+import torch.multiprocessing as mp  # noqa: E402
 import torch.nn.functional as F  # noqa: E402
+from torch.distributed.tensor import DTensor  # noqa: E402
 
 from repro_torch.core import (HSV_CC, HVLB_CC_B, HVLB_CC_IC,  # noqa: E402
                               DEFAULT_BATCH_MAX, CompiledInstance,
@@ -140,14 +158,17 @@ from repro_torch.checkpoint.checkpoint import \
 from repro_torch.data import SyntheticTokenPipeline  # noqa: E402
 from repro_torch.launch.serve import build_engine  # noqa: E402
 from repro_torch.launch.train import (init_state, resume,  # noqa: E402
-                                      train_loop)
-from repro_torch.models import (init_params, param_specs,  # noqa: E402
-                                tree_leaves)
+                                      start_group, train_loop)
+from repro_torch.launch.mesh import make_mesh  # noqa: E402
+from repro_torch.models.sharding import full, use_sharding  # noqa: E402
+from repro_torch.train.step import batch_shardings  # noqa: E402
+from repro_torch.models import (distribute_params,  # noqa: E402
+                                init_params, param_specs, tree_leaves)
 from repro_torch.models import layers as L  # noqa: E402
 from repro_torch.models import model as M  # noqa: E402
 from repro_torch.models import tree_map  # noqa: E402
 from repro_torch.optim import (AdamWConfig, OptState,  # noqa: E402
-                               adamw_update)
+                               adamw_update, init_opt_state)
 from repro_torch.train import loss_and_grads, make_train_step  # noqa: E402
 
 # NVIDIA H100 SXM data sheet: HBM3 bandwidth, FP64 and FP32 (non-tensor)
@@ -229,6 +250,26 @@ TRAIN_RESTART, TRAIN_RESTART_RTOL = 3, 1e-5
 # layers, batch 2, seq 512
 TRAIN_PARITY = ("qwen2-0.5b", "olmoe-1b-7b")
 TRAIN_PARITY_LAYERS, TRAIN_PARITY_BATCH, TRAIN_PARITY_SEQ = 2, 2, 512
+# the mesh phase: the launcher's path (--mesh 1x1) on a one-rank NCCL
+# DeviceMesh at the train phase's size and seed, MESH_STEPS steps held to
+# the train phase's first steps: losses at the restart check's rtol (the
+# same steps from the same state), grad norms at MESH_GNORM_RTOL (the
+# step's gradient at full width is chaotic, ROADMAP.md section 3: a
+# reordered sum would move it far more than the loss); both bit for bit
+# where DTensor dispatches the same local ops, which the line reports
+MESH_STEPS, MESH_GNORM_RTOL = 3, 1e-3
+# the dry run at full size on meta tensors (fake groups of 256 and 512
+# ranks), each rank's bytes under the card's memory
+DRYRUN_CELLS = (("dbrx-132b", "decode_32k", "pod"),
+                ("dbrx-132b", "train_4k", "multipod"),
+                ("qwen3-8b", "train_4k", "pod"))
+# 4 CPU ranks (gloo) on a 2 x 2 mesh at full width, cut to 2 layers, f64:
+# one train step (remat off: it changes no value and costs a forward)
+# held to the same step on one rank without a mesh at MESH_CPU_RTOL,
+# relative by norm (the mesh only reorders f64 sums)
+MESH_CPU_ARCHS = ("qwen2-0.5b", "olmoe-1b-7b")
+MESH_CPU_LAYERS, MESH_CPU_BATCH, MESH_CPU_SEQ = 2, 4, 256
+MESH_CPU_RTOL = 1e-10
 
 
 def emit(obj) -> None:
@@ -1778,6 +1819,317 @@ def phase_train(drive, paths) -> dict:
     return out
 
 
+def mesh_launcher(drive, train) -> dict:
+    """The launcher's path at ``--mesh 1x1``: a one-rank NCCL group, a
+    (1, 1) DeviceMesh over ("data", "model"), ``init_state`` under it
+    (every parameter and optimizer leaf a DTensor) and ``train_loop`` with
+    the batch laid out by ``batch_shardings``, at the train phase's size,
+    seed and schedule; ``MESH_STEPS`` steps (path ``mesh_train``), each
+    timed on the host clock to a synchronize (the first builds DTensor's
+    layout caches).  Losses and grad norms against the train phase's."""
+    cfg = get_arch(TRAIN_ARCH)
+    seq = SHAPES["train_4k"].seq_len
+    shape = ShapeConfig("train", seq, TRAIN_BATCH, "train")
+    pipe = SyntheticTokenPipeline(cfg, shape)
+    step_fn = make_train_step(
+        cfg, AdamWConfig(total_steps=TRAIN_WARMUP + TRAIN_STEPS + 1),
+        microbatch=TRAIN_MICROBATCH)
+    own = start_group("cuda")
+    try:
+        mesh = make_mesh((1, 1), ("data", "model"), "cuda")
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        with use_sharding(mesh):
+            params, opt = init_state(cfg, 0, "cuda")
+            leaves = tree_leaves(params) + tree_leaves(opt.mu) + \
+                tree_leaves(opt.nu) + [opt.step]
+            assert all(isinstance(x, DTensor) for x in leaves)
+            place = batch_shardings(cfg, shape)
+            infos, step_ms = [], []
+
+            def run():
+                nonlocal params, opt
+                for s in range(MESH_STEPS):
+                    t0 = time.perf_counter()
+                    params, opt, got = train_loop(
+                        step_fn, pipe, params, opt, s, s + 1, "cuda",
+                        log=None, placements=place)
+                    torch.cuda.synchronize()
+                    step_ms.append((time.perf_counter() - t0) * 1e3)
+                    infos.extend(got)
+
+            drive("mesh_train", run)
+            assert all(isinstance(x, DTensor) for x in tree_leaves(params))
+            del params, opt
+        peak = torch.cuda.max_memory_allocated()
+    finally:
+        if own:
+            dist.destroy_process_group()
+    torch.cuda.empty_cache()
+    want = train["losses"][:MESH_STEPS], train["grad_norms"][:MESH_STEPS]
+    got = [i["loss"] for i in infos], [i["grad_norm"] for i in infos]
+    if not (np.allclose(got[0], want[0], rtol=TRAIN_RESTART_RTOL, atol=0)
+            and np.allclose(got[1], want[1], rtol=MESH_GNORM_RTOL, atol=0)):
+        raise AssertionError(f"mesh 1x1 losses {got[0]}, grad norms "
+                             f"{got[1]} against the train phase's {want}")
+    steady = step_ms[1:]
+    return {"entry": "repro_torch.launch.train --mesh 1x1 (start_group, "
+                     "make_mesh, init_state, train_loop)",
+            "backend": "nccl", "mesh": {"data": 1, "model": 1},
+            "arch": cfg.name, "n_layers": cfg.n_layers, "seq": seq,
+            "batch": TRAIN_BATCH, "microbatch": TRAIN_MICROBATCH,
+            "losses": got[0], "grad_norms": got[1],
+            "train_losses": want[0], "train_grad_norms": want[1],
+            "losses_bit_equal": got[0] == want[0],
+            "grad_norms_bit_equal": got[1] == want[1],
+            "rtol": {"loss": TRAIN_RESTART_RTOL,
+                     "grad_norm": MESH_GNORM_RTOL},
+            "step_ms": step_ms, "first_step_ms": step_ms[0],
+            "ms_per_step": sum(steady) / len(steady),
+            "meshless_ms_per_step": train["ms_per_step"],
+            "max_memory_allocated_bytes": peak}
+
+
+DRYRUN_SCRIPT = """
+import json, sys
+sys.path.insert(0, sys.argv[1])
+import repro_torch.launch.dryrun as D
+for cell in json.loads(sys.argv[2]):
+    print(json.dumps(D.run_cell(*cell)), flush=True)
+"""
+
+
+def mesh_dryrun() -> dict:
+    """``launch/dryrun.py``'s ``run_cell`` on each of ``DRYRUN_CELLS`` at
+    full size, in a process of its own that sees no card (its fake group
+    must not meet this process's); every rank's bytes under the card's
+    memory, and no all-gather in a train cell as large as one rank's
+    (B, S, V) f32 logits gathered over the vocabulary."""
+    env = dict(os.environ, CUDA_VISIBLE_DEVICES="")
+    t0 = time.perf_counter()
+    out = subprocess.run([sys.executable, "-c", DRYRUN_SCRIPT,
+                          str(ROOT / "src"), json.dumps(DRYRUN_CELLS)],
+                         capture_output=True, text=True, env=env)
+    wall = time.perf_counter() - t0
+    if out.returncode:
+        raise RuntimeError(f"the dry run failed:\n{out.stderr[-4000:]}")
+    card = torch.cuda.get_device_properties(0).total_memory
+    cells = {}
+    for rec in map(json.loads, out.stdout.splitlines()):
+        name = f"{rec['arch']}/{rec['shape']}/{rec['mesh']}"
+        mem = rec["memory"]
+        if not mem["total_bytes"] < card:
+            raise AssertionError(f"dry run {name}: {mem['total_bytes']} "
+                                 f"bytes a rank, the card has {card}")
+        shape = SHAPES[rec["shape"]]
+        if shape.kind == "train":
+            cfg = get_arch(rec["arch"])
+            ways = rec["chips"] // 16
+            logits = shape.global_batch // ways * shape.seq_len * \
+                cfg.vocab * 4
+            gather = rec["collectives"].get("all_gather_into_tensor", {})
+            if not gather.get("max_result_bytes", 0) < logits:
+                raise AssertionError(f"dry run {name}: an all-gather of "
+                                     f"{gather} bytes, the logits {logits}")
+        cells[name] = {"ranks": rec["chips"], "memory": mem,
+                       "flops_per_rank": rec["cost"]["flops"],
+                       "collectives": rec["collectives"],
+                       "wall_s": rec["lower_s"]}
+    assert len(cells) == len(DRYRUN_CELLS), cells
+    return {"entry": "repro_torch.launch.dryrun.run_cell",
+            "card_total_memory_bytes": card, "cells": cells,
+            "process_wall_s": wall}
+
+
+def mesh_cpu_rank(rank, store, out, cases):
+    """One of 4 CPU ranks: each case of ``mesh_cpu_case`` (its arch's
+    config at full width, cut to ``MESH_CPU_LAYERS``, in f64) on a (2, 2)
+    mesh: one train step from seed-1 masters on step 0's batch, as
+    ``make_train_step`` makes it (``loss_and_grads``, then
+    ``adamw_update`` from a fresh state).  Each rank saves the loss, the
+    grad norm, and its own shards of every gradient and updated parameter
+    with their places (``<out>/<arch>.<rank>.pt``): gathering them over
+    gloo would take longer than the step."""
+    from torch.distributed.tensor._utils import \
+        compute_local_shape_and_global_offset
+    torch.set_num_threads(2)
+    dist.init_process_group("gloo", store=dist.FileStore(store, 4),
+                            rank=rank, world_size=4)
+    try:
+        mesh = make_mesh((2, 2), ("data", "model"), "cpu")
+
+        def shards(tree):
+            return [(a.to_local(), compute_local_shape_and_global_offset(
+                a.shape, mesh, a.placements)[1], tuple(a.shape))
+                for a in tree_leaves(tree)]
+
+        for arch, (cfg, pipe) in cases.items():
+            with use_sharding(mesh):
+                params = mesh_cpu_masters(cfg)
+                loss, grads = loss_and_grads(cfg, params, pipe.device_batch(
+                    0, "cpu", batch_shardings(cfg, pipe.shape)), remat=False)
+                new, _, info = adamw_update(AdamWConfig(), params, grads,
+                                            init_opt_state(params))
+                torch.save({"loss": full(loss),
+                            "grad_norm": info["grad_norm"],
+                            "grads": shards(grads), "params": shards(new)},
+                           Path(out) / f"{arch}.{rank}.pt")
+                del params, grads, new
+    finally:
+        dist.destroy_process_group()
+
+
+def mesh_cpu_whole(work, arch):
+    """The 4 ranks' results of ``arch``: rank 0's loss and grad norm, and
+    every gradient and updated parameter put together whole from the
+    ranks' shards (on the host: the card holds the reference's)."""
+    whole = {}
+    for rank in range(4):
+        part = torch.load(work / f"{arch}.{rank}.pt")
+        if rank == 0:
+            whole = {k: part[k] for k in ("loss", "grad_norm")}
+        for key in ("grads", "params"):
+            if rank == 0:
+                whole[key] = [torch.empty(shape, dtype=a.dtype)
+                              for a, _, shape in part[key]]
+            for dst, (a, offset, _) in zip(whole[key], part[key]):
+                dst[tuple(slice(o, o + n) for o, n in zip(
+                    offset, a.shape))] = a
+        del part
+    return whole
+
+
+def mesh_cpu_case(arch):
+    cfg = dataclasses.replace(get_arch(arch), n_layers=MESH_CPU_LAYERS,
+                              dtype="float64")
+    return cfg, SyntheticTokenPipeline(cfg, ShapeConfig(
+        "t", MESH_CPU_SEQ, MESH_CPU_BATCH, "train"))
+
+
+def mesh_cpu_masters(cfg):
+    """Seed-1 masters of ``cfg`` on the CPU in f64, laid out on the active
+    mesh (each rank keeps its shards of the f32 draw, then widens them)."""
+    params = distribute_params(cfg, init_params(
+        cfg, torch.Generator().manual_seed(1), "cpu"))
+    return tree_map(lambda a: a.to(torch.float64), params)
+
+
+def mesh_cpu() -> dict:
+    """``MESH_CPU_ARCHS`` on 4 CPU ranks (gloo, a ``FileStore`` under the
+    checkout's build/) against one rank without a mesh, on the card,
+    where it takes seconds where the host's CPU takes minutes (in f64 the
+    card's sums part from the CPU's by ~1e-14, the train phase's
+    card-against-CPU step): the loss and every gradient against the
+    card's, the grad norm and every updated parameter against AdamW on
+    the card from the ranks' gradients, each held at ``MESH_CPU_RTOL``,
+    relative by norm."""
+    work = ROOT / "build" / "mesh_cpu"
+    shutil.rmtree(work, ignore_errors=True)
+    work.mkdir(parents=True)
+    cases = {arch: mesh_cpu_case(arch) for arch in MESH_CPU_ARCHS}
+    t0 = time.perf_counter()
+    mp.start_processes(mesh_cpu_rank, args=(str(work / "store"), str(work),
+                                            cases),
+                       nprocs=4, join=True, start_method="spawn")
+    ranks_s = time.perf_counter() - t0
+    out = {"mesh": {"data": 2, "model": 2}, "backend": "gloo",
+           "reference": "one rank, no mesh, on the card",
+           "n_layers": MESH_CPU_LAYERS, "batch": MESH_CPU_BATCH,
+           "seq": MESH_CPU_SEQ, "dtype": "float64", "rtol": MESH_CPU_RTOL,
+           "ranks_wall_s": ranks_s, "archs": {}}
+    for arch, (cfg, pipe) in cases.items():
+        t1 = time.perf_counter()
+        params = tree_map(lambda a: a.cuda(), mesh_cpu_masters(cfg))
+        loss, grads = loss_and_grads(cfg, params, pipe.device_batch(
+            0, "cuda"), remat=False)
+        g = mesh_cpu_whole(work, arch)
+        names = leaf_names(params)
+        # the update from the ranks' own gradients: AdamW is elementwise,
+        # so this holds the update on shards apart from the gradients'
+        # sums (AdamW's first step divides a gradient near its eps by
+        # itself, turning a 1e-18 difference into 1e-10 of the update)
+        mine = iter([a.cuda() for a in g["grads"]])
+        new, _, info = adamw_update(
+            AdamWConfig(), params, tree_map(lambda _: next(mine), params),
+            init_opt_state(params))
+        torch.cuda.synchronize()
+        del params
+        pairs = ([("loss", g["loss"], loss),
+                  ("grad_norm", g["grad_norm"], info["grad_norm"])]
+                 + [(f"grad {n}", a, b) for n, a, b in zip(
+                     names, g["grads"], tree_leaves(grads))]
+                 + [(f"param {n}", a, b) for n, a, b in zip(
+                     names, g["params"], tree_leaves(new))])
+        worst, peak = (-1.0, ""), (-1.0, "")
+        for name, a, b in pairs:
+            a, b = a.double().cuda(), b.double()
+            err = float((a - b).norm() / b.norm().clamp_min(1e-300))
+            if not err <= MESH_CPU_RTOL:
+                raise AssertionError(f"mesh cpu {arch} {name}: relative "
+                                     f"error {err}")
+            worst = max(worst, (err, name))
+            peak = max(peak, (float((a - b).abs().max() / b.abs().max()
+                                    .clamp_min(1e-300)), name))
+        out["archs"][arch] = {"d_model": cfg.d_model,
+                              "loss": float(g["loss"]),
+                              "grad_norm": float(g["grad_norm"]),
+                              "leaves_held": len(pairs),
+                              "rel_err": worst[0], "worst": worst[1],
+                              "max_abs_over_max": peak[0],
+                              "max_abs_worst": peak[1],
+                              "one_rank_s": time.perf_counter() - t1}
+        del grads, new, g
+        torch.cuda.empty_cache()
+    shutil.rmtree(work)
+    return out
+
+
+def token_nll_vs_torch() -> dict:
+    """The loss head on the card at the train phase's logits (one
+    microbatch of qwen2-0.5b, f32): ``loss_fn``'s ``_TokenNLL`` against
+    ``torch.logsumexp`` less the ``gather``ed gold logit, which it
+    replaced so that a split vocabulary is never gathered; the mean and
+    its gradient bit for bit."""
+    g = torch.Generator(device="cuda").manual_seed(0)
+    shape = (TRAIN_BATCH // TRAIN_MICROBATCH, SHAPES["train_4k"].seq_len,
+             get_arch(TRAIN_ARCH).vocab)
+    x = torch.randn(shape, generator=g, device="cuda") * 8
+    labels = torch.randint(0, shape[-1], shape[:2], generator=g,
+                           device="cuda")
+    a = x.clone().requires_grad_()
+    want = (torch.logsumexp(a, -1) - a.gather(
+        -1, labels[..., None])[..., 0]).mean()
+    ga, = torch.autograd.grad(want, a)
+    del a
+    b = x.requires_grad_()
+    got = M._TokenNLL.apply(b, labels).mean()
+    gb, = torch.autograd.grad(got, b)
+    equal = bool(torch.equal(got, want)) and bool(torch.equal(ga, gb))
+    del b, ga, gb, x
+    torch.cuda.empty_cache()
+    if not equal:
+        raise AssertionError("the loss head parts from torch.logsumexp and "
+                             "gather on the card")
+    return {"shape": list(shape), "loss": float(got.detach()),
+            "bit_equal": equal}
+
+
+def phase_mesh(drive, paths, train) -> dict:
+    """The sharding path: the launcher at ``--mesh 1x1`` on the card
+    against the train phase, the full-size dry run, and 4 CPU ranks
+    against one."""
+    t_phase = time.perf_counter()
+    out = {"phase": "mesh", "launcher": mesh_launcher(drive, train)}
+    assert all(v == 0 for v in paths["mesh_train"].values()), paths
+    out["loss_head"] = token_nll_vs_torch()
+    out["dryrun"] = mesh_dryrun()
+    t0 = time.perf_counter()
+    out["cpu_ranks"] = mesh_cpu()
+    out["cpu_ranks"]["phase_s"] = time.perf_counter() - t0
+    out["phase_s"] = time.perf_counter() - t_phase
+    return out
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -2095,7 +2447,13 @@ def main() -> int:
 
     # ---- 9. the training path at qwen2-0.5b's full size
     torch.cuda.empty_cache()
-    emit(phase_train(drive, paths))
+    train = phase_train(drive, paths)
+    emit(train)
+
+    # ---- 9b. the sharding path: a one-rank NCCL mesh, the dry run, 4
+    # CPU ranks
+    torch.cuda.empty_cache()
+    emit(phase_mesh(drive, paths, train))
 
     # ---- 10. kernels: each path launches its own kernels and no other;
     # the kernels line carries each kernel's count on its path and, for

@@ -11,8 +11,12 @@ tree.  Writes go to a temporary directory that is renamed into place,
 so a crash mid-save never corrupts the latest checkpoint.  A bf16 leaf
 is written as the reference writes one (its 16-bit patterns, numpy
 ``V2``) and read back through the int16 view; checkpoints move both
-ways between the packages.  Restoring onto another mesh waits for the
-sharding slice.
+ways between the packages.
+
+A sharded tree (DTensor leaves) is saved whole: every rank gathers each
+leaf and rank 0 writes it, so the files do not depend on the mesh.
+``restore(..., placements=...)`` lays the leaves out on the active
+mesh, whatever mesh saved them (the reference's elastic reshard).
 """
 from __future__ import annotations
 
@@ -24,6 +28,9 @@ from typing import Any, Dict, Iterator, List, Optional, Tuple, Union
 
 import numpy as np
 import torch
+import torch.distributed as dist
+
+from ..models.sharding import distribute, full
 
 Tree = Any
 SEP = "::"
@@ -77,24 +84,34 @@ def _write(path: Path, leaf: Any) -> Tuple[List[int], str]:
 
 
 def save(ckpt_dir: Union[str, Path], step: int, tree: Tree) -> Path:
+    """Writes ``tree`` as the checkpoint of ``step``.  In a process group
+    every rank calls it: each DTensor leaf is gathered whole, rank 0
+    writes, and no rank returns before the checkpoint is published."""
     d = Path(ckpt_dir)
-    d.mkdir(parents=True, exist_ok=True)
+    writer = not dist.is_initialized() or dist.get_rank() == 0
     tmp = d / f".tmp_step_{step}"
-    if tmp.exists():
-        shutil.rmtree(tmp)
-    tmp.mkdir()
+    if writer:
+        d.mkdir(parents=True, exist_ok=True)
+        if tmp.exists():
+            shutil.rmtree(tmp)
+        tmp.mkdir()
     manifest: Dict[str, Dict[str, Any]] = {}
     for path, leaf in _paths(tree):
         key = SEP.join(path)
         fname = key.replace("/", "_") + ".npy"
-        shape, dtype = _write(tmp / fname, leaf)
-        manifest[key] = {"file": fname, "shape": shape, "dtype": dtype}
-    (tmp / "manifest.json").write_text(json.dumps(
-        {"step": step, "leaves": manifest}, indent=1))
+        leaf = full(leaf)
+        if writer:
+            shape, dtype = _write(tmp / fname, leaf)
+            manifest[key] = {"file": fname, "shape": shape, "dtype": dtype}
     final = d / f"step_{step}"
-    if final.exists():
-        shutil.rmtree(final)
-    os.rename(tmp, final)                      # atomic publish
+    if writer:
+        (tmp / "manifest.json").write_text(json.dumps(
+            {"step": step, "leaves": manifest}, indent=1))
+        if final.exists():
+            shutil.rmtree(final)
+        os.rename(tmp, final)                  # atomic publish
+    if dist.is_initialized():
+        dist.barrier()
     return final
 
 
@@ -115,11 +132,28 @@ def _load(path: Path, dtype: str) -> torch.Tensor:
     return torch.from_numpy(arr)
 
 
+def _at(tree: Tree, path: Tuple[str, ...]) -> Any:
+    """The node of ``tree`` at a :func:`_paths` path."""
+    for k in path:
+        if k.startswith("."):
+            tree = getattr(tree, k[1:])
+        elif isinstance(tree, dict):
+            tree = tree[k]
+        else:
+            tree = tree[int(k)]
+    return tree
+
+
 def restore(ckpt_dir: Union[str, Path], step: int, like: Tree,
-            device: Union[str, torch.device] = "cuda") -> Tree:
+            device: Union[str, torch.device] = "cuda",
+            placements: Optional[Tree] = None) -> Tree:
     """The checkpoint of ``step`` in the structure of ``like``, each leaf
     in its saved dtype on ``device`` (the card unless the caller asks for
-    the CPU)."""
+    the CPU).  With ``placements``, a tree of the same structure whose
+    leaves are DTensor placements (``param_shardings``,
+    ``opt_shardings``), each leaf becomes a DTensor laid out by them on
+    the active mesh, each rank keeping its own shard: any mesh, whatever
+    mesh saved it."""
     from ..core.backends.cuda import check_device
     dev = check_device(device)
     d = Path(ckpt_dir) / f"step_{step}"
@@ -127,5 +161,7 @@ def restore(ckpt_dir: Union[str, Path], step: int, like: Tree,
     out: List[torch.Tensor] = []
     for path, _ in _paths(like):
         m = manifest[SEP.join(path)]
-        out.append(_load(d / m["file"], m["dtype"]).to(dev))
+        t = _load(d / m["file"], m["dtype"]).to(dev)
+        out.append(t if placements is None
+                   else distribute(t, _at(placements, path)))
     return _rebuild(like, iter(out))

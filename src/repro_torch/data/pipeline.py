@@ -5,17 +5,19 @@ Step-indexed and host-shardable: ``batch_for_step(step)`` is a pure
 function of (seed, step, host index), so any host can regenerate any
 shard and a restart needs no data cursor beyond the step counter.  The
 batches are numpy, drawn exactly as the reference draws them, so both
-packages see the same bits; ``device_batch`` puts them on the device.
+packages see the same bits; ``device_batch`` puts them on the device,
+under a mesh each rank keeping its shard of the global batch.
 """
 from __future__ import annotations
 
 import dataclasses
-from typing import Dict, Union
+from typing import Dict, Optional, Union
 
 import numpy as np
 import torch
 
 from ..configs.base import ModelConfig, ShapeConfig
+from ..models.sharding import distribute
 
 
 @dataclasses.dataclass(frozen=True)
@@ -63,11 +65,16 @@ class SyntheticTokenPipeline:
         return out
 
     def device_batch(self, step: int,
-                     device: Union[str, torch.device] = "cuda"
+                     device: Union[str, torch.device] = "cuda",
+                     placements: Optional[Dict] = None
                      ) -> Dict[str, torch.Tensor]:
         """``batch_for_step(step)`` as tensors on ``device`` (the card
-        unless the caller asks for the CPU)."""
+        unless the caller asks for the CPU).  With ``placements``
+        (``train.step.batch_shardings``) each input is a DTensor on the
+        active mesh: every rank makes the global batch from the seed and
+        keeps its own shard."""
         from ..core.backends.cuda import check_device
         dev = check_device(device)
-        return {k: torch.from_numpy(np.ascontiguousarray(v)).to(dev)
+        return {k: distribute(torch.from_numpy(np.ascontiguousarray(v)).to(
+                    dev), placements[k] if placements else None)
                 for k, v in self.batch_for_step(step).items()}

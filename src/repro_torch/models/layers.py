@@ -8,9 +8,15 @@ softplus written as ``jax.nn`` composes them, so a bf16 activation
 rounds where the reference's does.  The MoE routes as ``jax.lax.top_k``
 does (ties to the lower expert index) and drops the same overflow; the
 Mamba blocks scan in f32 with the reference's chunking.  Functions take
-plain dicts of tensors.  The reference's ``shard`` constraints are
-no-ops without a mesh and have no counterpart here.  A cached decode
-writes its token's k and v into the cache in place.
+plain dicts of tensors.  Each activation is constrained to its logical
+layout (:func:`~repro_torch.models.sharding.shard`) where the
+reference constrains it, with the same logical names: a no-op without a
+mesh, a DTensor redistribution under one; the constants a layer makes
+(positions, masks, aranges) are replicated there.  Attention over whole
+sequences, the MoE's routing and experts and Mamba-2's chunked scan run
+on each rank's shards (``sharding.local``), where they are local.  A
+cached decode writes its token's k and v into the cache in place,
+under a mesh into the shard that owns the position.
 """
 from __future__ import annotations
 
@@ -20,6 +26,7 @@ from typing import Dict, Optional, Tuple
 import torch
 
 from ..configs.base import ModelConfig
+from .sharding import index_copy_, local, pin, replicate, shard, view
 
 Params = Dict[str, torch.Tensor]
 
@@ -57,7 +64,7 @@ def _rope_angles(positions: torch.Tensor, dim: int, theta: float,
     """positions (...,) -> cos/sin (..., dim//2), in ``dtype`` (f32, as
     the reference; f64 in an f64 model)."""
     ar = torch.arange(0, dim, 2, dtype=dtype, device=positions.device)
-    freqs = 1.0 / (theta ** (ar / dim))
+    freqs = replicate(1.0 / (theta ** (ar / dim)))
     ang = positions.to(dtype)[..., None] * freqs
     return torch.cos(ang), torch.sin(ang)
 
@@ -100,7 +107,7 @@ def apply_rope(cfg: ModelConfig, q: torch.Tensor, k: torch.Tensor,
         cos_t, sin_t = _rope_angles(pos_t, dh, cfg.rope_theta, at)
         cos_h, sin_h = _rope_angles(pos_h, dh, cfg.rope_theta, at)
         cos_w, sin_w = _rope_angles(pos_w, dh, cfg.rope_theta, at)
-        idx = torch.arange(dh // 2, device=positions.device)
+        idx = replicate(torch.arange(dh // 2, device=positions.device))
         sel_h = (idx >= 2 * sec) & (idx < 3 * sec)
         sel_w = idx >= 3 * sec
         cos = torch.where(sel_h, cos_h, torch.where(sel_w, cos_w, cos_t))
@@ -125,7 +132,7 @@ def _weighted_values(scores: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
     return torch.einsum("bkgqs,bskh->bqkgh", w.to(v.dtype), v)
 
 
-def _sdpa_full(q, k, v, causal: bool, q_offset) -> torch.Tensor:
+def _sdpa_full(q, k, v, causal: bool, q_offset=0) -> torch.Tensor:
     """q (B,Sq,K,G,dh), k/v (B,Sk,K,dh) -> (B,Sq,K,G,dh)."""
     scale = 1.0 / math.sqrt(q.shape[-1])
     scores = torch.einsum("bqkgh,bskh->bkgqs", _f32(q) * scale, _f32(k))
@@ -157,6 +164,21 @@ def _sdpa_chunked(q, k, v, causal: bool) -> torch.Tensor:
     return torch.cat(outs, dim=1)
 
 
+def _project_heads(x: torch.Tensor, w: torch.Tensor,
+                   heads: str) -> torch.Tensor:
+    """x (B,S,D) · w (D,H,dh) -> (B,S,H,dh): the one (D, H·dh) product
+    ``einsum("bsd,dhk->bshk")`` makes, viewed back to heads by
+    :func:`view`.  Under a mesh DTensor may split the flat H·dh product
+    where the heads do not divide among the shards; the view lays the
+    heads out by their logical axis ``heads`` first, and the weight's
+    gradient is pinned to the weight's layout (:func:`pin`) for the same
+    reason."""
+    D, H, dh = w.shape
+    y = torch.einsum("bsd,df->bsf", x, pin(w.reshape(D, H * dh)))
+    return view(y, (x.shape[0], x.shape[1], H, dh), "batch", "seq", heads,
+                None)
+
+
 def attention(cfg: ModelConfig, p: Params, x: torch.Tensor,
               positions: torch.Tensor,
               cache: Optional[Params] = None,
@@ -170,40 +192,60 @@ def attention(cfg: ModelConfig, p: Params, x: torch.Tensor,
     B, S, D = x.shape
     H, K, dh = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
     G = H // K
-    q = torch.einsum("bsd,dhk->bshk", x, p["wq"])
-    k = torch.einsum("bsd,dhk->bshk", x, p["wk"])
-    v = torch.einsum("bsd,dhk->bshk", x, p["wv"])
+    q = _project_heads(x, p["wq"], "heads")
+    k = _project_heads(x, p["wk"], "kv_heads")
+    v = _project_heads(x, p["wv"], "kv_heads")
     if cfg.qkv_bias:
         q = q + p["bq"]
         k = k + p["bk"]
         v = v + p["bv"]
+    q = shard(q, "batch", "seq", "heads", None)
+    k = shard(k, "batch", "seq", "kv_heads", None)
+    v = shard(v, "batch", "seq", "kv_heads", None)
     q, k = _qk_norm(q, k, p, cfg.norm_eps)
     q, k = apply_rope(cfg, q, k, positions)
-    qg = q.reshape(B, S, K, G, dh)
+    qg = view(q, (B, S, K, G, dh), "batch", "seq", "kv_heads", None, None)
 
     new_cache = None
     if cache is not None:
         ck, cv = cache["k"], cache["v"]
         idx = cache_pos[:1].long()
-        ck.index_copy_(1, idx, k.to(ck.dtype))
-        cv.index_copy_(1, idx, v.to(cv.dtype))
+        index_copy_(ck, 1, idx, k.to(ck.dtype))
+        index_copy_(cv, 1, idx, v.to(cv.dtype))
         new_cache = {"k": ck, "v": cv}
         scale = 1.0 / math.sqrt(dh)
-        scores = torch.einsum("bqkgh,bskh->bkgqs", _f32(qg) * scale,
-                              _f32(ck))
         Sk = ck.shape[1]
-        mask = torch.arange(Sk, device=x.device)[None, :] \
+        # split-K over the cache's positions: each rank scores its own
+        # keys; the softmax spans the shards; each rank weighs its own
+        # values, and the shards' sums are added
+        rows = ("batch", None, None, None)
+        keys = ("batch", None, None, None, "cache_seq")
+        scores = local(lambda q_, k_: torch.einsum(
+            "bqkgh,bskh->bkgqs", _f32(q_) * scale, _f32(k_)),
+            ((B, K, G, S, Sk), keys), (qg, rows + (None,)),
+            (ck, ("batch", "cache_seq", None, None)))
+        mask = replicate(torch.arange(Sk, device=x.device))[None, :] \
             <= cache_pos[:, None]                            # (B, Sk)
         scores = scores.masked_fill(~mask[:, None, None, None, :], MASKED)
-        out = _weighted_values(scores, cv)
-    elif S > ATTN_CHUNK_THRESHOLD and S % ATTN_CHUNK == 0:
-        out = _sdpa_chunked(qg, k, v, cfg.causal)
+        w = torch.softmax(scores, dim=-1)
+        out = local(lambda w_, v_: torch.einsum(
+            "bkgqs,bskh->bqkgh", w_.to(v_.dtype), v_),
+            ((B, S, K, G, dh), rows + (None,)), (w, keys),
+            (cv, ("batch", "cache_seq", None, None)),
+            partial=("cache_seq", Sk))
     else:
-        out = _sdpa_full(qg, k, v, cfg.causal, 0)
+        # whole sequences per rank, the batch and the KV heads split:
+        # attention is local to each rank's shards
+        fn = _sdpa_chunked if S > ATTN_CHUNK_THRESHOLD and \
+            S % ATTN_CHUNK == 0 else _sdpa_full
+        heads = ("batch", None, "kv_heads", None)
+        out = local(lambda q_, k_, v_: fn(q_, k_, v_, cfg.causal),
+                    (qg.shape, heads + (None,)), (qg, heads + (None,)),
+                    (k, heads), (v, heads))
 
-    out = out.reshape(B, S, H * dh)
+    out = view(out, (B, S, H * dh), "batch", "seq", "heads")
     out = torch.einsum("bsh,hd->bsd", out, p["wo"])
-    return out, new_cache
+    return shard(out, "batch", "seq", "embed"), new_cache
 
 
 # -------------------------------------------------------------------- mlp
@@ -234,7 +276,9 @@ def mlp(cfg: ModelConfig, p: Params, x: torch.Tensor) -> torch.Tensor:
             torch.einsum("bsd,df->bsf", x, p["w_up"])
     else:
         h = _gelu(torch.einsum("bsd,df->bsf", x, p["w_up"]))
-    return torch.einsum("bsf,fd->bsd", h, p["w_down"])
+    h = shard(h, "batch", "seq", "ff")
+    out = torch.einsum("bsf,fd->bsd", h, p["w_down"])
+    return shard(out, "batch", "seq", "embed")
 
 
 def _softplus(x: torch.Tensor) -> torch.Tensor:
@@ -300,6 +344,24 @@ def moe_route(cfg: ModelConfig, p: Params, x: torch.Tensor
     descending sort (ties to the lower index, as ``jax.lax.top_k``), the
     masks by :func:`_dispatch`.  Returns the picked experts (n, G, k)
     and the dispatch and combine masks (n, G, E, C), f32."""
+    B, S, D = x.shape
+    E, k = cfg.n_experts, cfg.top_k
+    G = min(MOE_GROUP, B * S)
+    n, C = B * S // G, max(1, int(k * G / E * MOE_CAPACITY_FACTOR))
+    # each rank routes its own token groups over every expert (the router
+    # whole): the routing is local, and a DTensor sort's gradient is not
+    rows, masks = ("batch", None, None), ("batch", None, None, None)
+    return local(lambda x_, w: _route(cfg, {"w_router": w}, x_),
+                 [((n, G, k), rows), ((n, G, E, C), masks),
+                  ((n, G, E, C), masks)],
+                 (view(x, (n, G, D), *rows), rows),
+                 (p["w_router"], (None, None)))
+
+
+def _route(cfg: ModelConfig, p: Params, x: torch.Tensor
+           ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """:func:`moe_route` on plain tensors (x (B,S,D) or already in token
+    groups (n,G,D))."""
     probs, C = _router_probs(cfg, p, x)
     vals, idx = torch.sort(probs, dim=-1, descending=True, stable=True)
     k = cfg.top_k
@@ -311,20 +373,39 @@ def moe(cfg: ModelConfig, p: Params, x: torch.Tensor) -> torch.Tensor:
     """GShard-style top-k MoE with grouped one-hot dispatch and capacity
     (:func:`moe_route`); overflow tokens drop to the residual path.
     Every expert runs on its whole capacity buffer, as the reference's
-    does."""
+    does.  Under a mesh each rank runs its own experts on its own token
+    groups (the reference's layout of the dispatched tokens: batch and
+    expert split), with the weights' d_model split gathered; the
+    combine is a pending sum over the expert shards."""
     B, S, D = x.shape
     _, disp, comb = moe_route(cfg, p, x)
-    xt = x.reshape(disp.shape[0], disp.shape[1], D)
-    xe = torch.einsum("ngd,ngec->necd", xt, disp.to(x.dtype))
+    n, G, E, _ = disp.shape
+    rows, groups = ("batch", None, None), ("batch", None, "expert", None)
+    ws = [(p[k], ("p_experts", None, None))
+          for k in ("w_gate", "w_up", "w_down") if k in p]
+    xt = view(x, (n, G, D), *rows)
+    out = local(lambda *a: _experts(cfg, *a), ((n, G, D), rows), (xt, rows),
+                (disp, groups), (comb, groups), *ws, partial=("expert", E))
+    return view(out, (B, S, D), "batch", "seq", "embed")
+
+
+def _experts(cfg: ModelConfig, xt: torch.Tensor, disp: torch.Tensor,
+             comb: torch.Tensor, *ws: torch.Tensor) -> torch.Tensor:
+    """The MoE's experts: the tokens xt (n,G,D) dispatched into each
+    expert's capacity buffer by ``disp`` (n,G,E,C), each expert's MLP
+    (weights ``w_gate``, ``w_up``, ``w_down`` (E, ...), the gate only
+    for a gated MLP), and the buffers combined back by ``comb``."""
+    xe = torch.einsum("ngd,ngec->necd", xt, disp.to(xt.dtype))
     if cfg.mlp in ("swiglu", "geglu"):
+        w_gate, w_up, w_down = ws
         act = _silu if cfg.mlp == "swiglu" else _gelu
-        h = act(torch.einsum("necd,edf->necf", xe, p["w_gate"])) * \
-            torch.einsum("necd,edf->necf", xe, p["w_up"])
+        h = act(torch.einsum("necd,edf->necf", xe, w_gate)) * \
+            torch.einsum("necd,edf->necf", xe, w_up)
     else:
-        h = _gelu(torch.einsum("necd,edf->necf", xe, p["w_up"]))
-    ye = torch.einsum("necf,efd->necd", h, p["w_down"])
-    out = torch.einsum("necd,ngec->ngd", ye, comb.to(x.dtype))
-    return out.reshape(B, S, D)
+        w_up, w_down = ws
+        h = _gelu(torch.einsum("necd,edf->necf", xe, w_up))
+    ye = torch.einsum("necf,efd->necd", h, w_down)
+    return torch.einsum("necd,ngec->ngd", ye, comb.to(xt.dtype))
 
 
 # ------------------------------------------------------------------ mamba
@@ -379,6 +460,7 @@ def mamba1(cfg: ModelConfig, p: Params, x: torch.Tensor,
     Di, N, R = cfg.d_inner, cfg.d_state, cfg.dt_rank
     xz = torch.einsum("bsd,de->bse", x, p["w_in"])           # (B,S,2Di)
     xs, z = torch.split(xz, [Di, Di], dim=-1)
+    xs = shard(xs, "batch", "seq", "ssm_inner")
     conv_state = state["conv"] if state is not None else None
     xs, new_conv = _causal_conv(xs, p["conv_w"], conv_state)
     xs = _silu(xs + p["conv_b"])
@@ -408,7 +490,48 @@ def mamba1(cfg: ModelConfig, p: Params, x: torch.Tensor,
     y = y.to(x.dtype) + xs * p["D_skip"]
     y = y * _silu(z)
     out = torch.einsum("bse,ed->bsd", y, p["w_out"])
-    return out, new_state
+    return shard(out, "batch", "seq", "embed"), new_state
+
+
+def _ssd_chunked(dA: torch.Tensor, dt: torch.Tensor, xh: torch.Tensor,
+                 Bss: torch.Tensor, Css: torch.Tensor) -> torch.Tensor:
+    """Mamba-2's chunked SSD over a whole sequence, in f32: dA (B,S,Hs)
+    the log-decays, dt (B,S,Hs), xh (B,S,Hs,dh), Bss and Css (B,S,N);
+    returns y (B,S,Hs,dh).  The intra-chunk decay mask L and an
+    inter-chunk state recurrence."""
+    B, S, Hs, dh = xh.shape
+    N = Bss.shape[-1]
+    C_chunk = min(SSM_CHUNK, S)
+    nc = S // C_chunk
+    cum = torch.cumsum(dA.reshape(B, nc, C_chunk, Hs), dim=2)
+    xdt = _f32(dt.reshape(B, nc, C_chunk, Hs)[..., None]
+               * xh.reshape(B, nc, C_chunk, Hs, dh))
+    Bc = _f32(Bss.reshape(B, nc, C_chunk, N))
+    Cc = _f32(Css.reshape(B, nc, C_chunk, N))
+    # intra-chunk: L[t,u] = exp(cum_t - cum_u) for t >= u
+    diff = cum[:, :, :, None, :] - cum[:, :, None, :, :]  # (B,nc,C,C,Hs)
+    tri = torch.ones(C_chunk, C_chunk, dtype=torch.bool,
+                     device=xh.device).tril()
+    L = torch.where(tri[None, None, :, :, None], torch.exp(diff),
+                    torch.zeros((), device=xh.device))
+    scores = torch.einsum("bntk,bnuk->bntu", Cc, Bc)     # (B,nc,C,C)
+    # the three-operand contractions pairwise, in opt_einsum's order
+    y_intra = torch.einsum("bntuh,bnuhe->bnthe", scores[..., None] * L, xdt)
+    # inter-chunk: carry the state across chunks
+    seg_end = cum[:, :, -1]                              # (B,nc,Hs)
+    chunk_state = torch.einsum(
+        "bnuhe,bnuk->bnhek",
+        torch.exp(seg_end[:, :, None] - cum)[..., None] * xdt, Bc)
+    h = torch.zeros((B, Hs, dh, N), dtype=Bc.dtype, device=xh.device)
+    h_in = []
+    for c in range(nc):
+        h_in.append(h)
+        h = h * torch.exp(seg_end[:, c])[..., None, None] + chunk_state[:, c]
+    h_in = torch.stack(h_in, dim=1)                      # (B,nc,Hs,dh,N)
+    y_inter = torch.einsum(
+        "bnthk,bnhek->bnthe",
+        Cc[:, :, :, None, :] * torch.exp(cum)[..., None], h_in)
+    return (y_intra + y_inter).reshape(B, S, Hs, dh)
 
 
 def mamba2(cfg: ModelConfig, p: Params, x: torch.Tensor,
@@ -430,11 +553,12 @@ def mamba2(cfg: ModelConfig, p: Params, x: torch.Tensor,
     conv_out, new_conv = _causal_conv(conv_in, p["conv_w"], conv_state)
     conv_out = _silu(conv_out + p["conv_b"])
     xs, Bss, Css = torch.split(conv_out, [Di, N, N], dim=-1)
+    xs = shard(xs, "batch", "seq", "ssm_inner")
 
     dt = _softplus(dt_raw + p["dt_bias"])                    # (B,S,Hs)
     A = -torch.exp(_f32(p["A_log"]))                       # (Hs,)
     dA = _f32(dt) * A                                      # log-decay
-    xh = xs.reshape(B, S, Hs, dh)
+    xh = view(xs, (B, S, Hs, dh), "batch", "seq", "ssm_heads", None)
 
     if state is not None:
         decay = torch.exp(dA[:, 0])                          # (B,Hs)
@@ -443,46 +567,20 @@ def mamba2(cfg: ModelConfig, p: Params, x: torch.Tensor,
         h = state["h"] * decay[..., None, None] + torch.einsum(
             "bhe,bn->bhen", dt[:, 0, :, None] * xh[:, 0], Bss[:, 0])
         y = torch.einsum("bhen,bn->bhe", h, _f32(Css[:, 0]))
-        y = y.reshape(B, 1, Di)
+        y = view(y, (B, 1, Di), "batch", "seq", "ssm_inner")
         new_state = {"h": h, "conv": new_conv}
     else:
-        C_chunk = min(SSM_CHUNK, S)
-        nc = S // C_chunk
-        cum = torch.cumsum(dA.reshape(B, nc, C_chunk, Hs), dim=2)
-        xdt = _f32(dt.reshape(B, nc, C_chunk, Hs)[..., None]
-                   * xh.reshape(B, nc, C_chunk, Hs, dh))
-        Bc = _f32(Bss.reshape(B, nc, C_chunk, N))
-        Cc = _f32(Css.reshape(B, nc, C_chunk, N))
-        # intra-chunk: L[t,u] = exp(cum_t - cum_u) for t >= u
-        diff = cum[:, :, :, None, :] - cum[:, :, None, :, :]  # (B,nc,C,C,Hs)
-        tri = torch.ones(C_chunk, C_chunk, dtype=torch.bool,
-                         device=x.device).tril()
-        L = torch.where(tri[None, None, :, :, None], torch.exp(diff),
-                        torch.zeros((), device=x.device))
-        scores = torch.einsum("bntk,bnuk->bntu", Cc, Bc)     # (B,nc,C,C)
-        # the three-operand contractions pairwise, in opt_einsum's order
-        y_intra = torch.einsum("bntuh,bnuhe->bnthe",
-                               scores[..., None] * L, xdt)
-        # inter-chunk: carry the state across chunks
-        seg_end = cum[:, :, -1]                              # (B,nc,Hs)
-        chunk_state = torch.einsum(
-            "bnuhe,bnuk->bnhek",
-            torch.exp(seg_end[:, :, None] - cum)[..., None] * xdt, Bc)
-        h = torch.zeros((B, Hs, dh, N), dtype=Bc.dtype,
-                        device=x.device)
-        h_in = []
-        for c in range(nc):
-            h_in.append(h)
-            h = h * torch.exp(seg_end[:, c])[..., None, None] \
-                + chunk_state[:, c]
-        h_in = torch.stack(h_in, dim=1)                      # (B,nc,Hs,dh,N)
-        y_inter = torch.einsum(
-            "bnthk,bnhek->bnthe",
-            Cc[:, :, :, None, :] * torch.exp(cum)[..., None], h_in)
-        y = (y_intra + y_inter).reshape(B, S, Di)
+        # whole sequences per rank, the batch and the SSM heads split: the
+        # chunked scan is local to each rank's shards
+        heads = ("batch", None, "ssm_heads")
+        rows = ("batch", None, None)
+        y = local(_ssd_chunked, ((B, S, Hs, dh), heads + (None,)),
+                  (dA, heads), (dt, heads), (xh, heads + (None,)),
+                  (Bss, rows), (Css, rows))
+        y = view(y, (B, S, Di), "batch", "seq", "ssm_inner")
         new_state = None
 
     y = y.to(x.dtype) + xs * p["D_skip"].repeat_interleave(dh)
     y = rms_norm(y * _silu(z), p["out_norm"], cfg.norm_eps)
     out = torch.einsum("bse,ed->bsd", y, p["w_out"])
-    return out, new_state
+    return shard(out, "batch", "seq", "embed"), new_state

@@ -14,17 +14,27 @@ dict.  ``forward(remat=True)`` recomputes each layer's activations in
 the backward pass (``torch.utils.checkpoint``), as the reference's
 ``jax.checkpoint`` does; the embedding's gradient is the reference's
 custom one (:class:`_EmbedLookup`).
+
+Under :func:`~repro_torch.models.sharding.use_sharding` the same code
+runs on DTensors: the parameters and the batch are laid out by their
+logical axes, and each activation is redistributed (``shard``) where
+the reference constrains it, with the same logical names.
 """
 from __future__ import annotations
 
+import contextlib
+import math
 from typing import Any, Callable, Dict, List, Tuple, Union
 
 import torch
+from torch.distributed.tensor import DTensor, Replicate, Shard
 from torch.utils.checkpoint import checkpoint
 
 from ..configs.base import ModelConfig
 from .layers import _f32, attention, mamba1, mamba2, mlp, moe, rms_norm
 from .params import ParamSpec, tree_map
+from .sharding import active, local_shard, partial_over_batch, \
+    placements, replicate, shard, spec_for, use_sharding
 
 Tree = Dict[str, Any]
 
@@ -59,13 +69,19 @@ class _EmbedLookup(torch.autograd.Function):
     cotangents added into a zero (V, D) table in f32 (f64 in an f64
     model), then cast to the table's dtype.  ``F.embedding``'s backward
     adds them in the table's dtype, which on a bf16 table rounds after
-    every repeated token where the reference rounds once."""
+    every repeated token where the reference rounds once.
+
+    Under a mesh each rank adds its own rows (the batch shard) into a
+    whole table, and the tables are summed and split by vocabulary like
+    the parameter (``shard(dtable, "vocab", None)``, as the reference):
+    one table-sized reduce."""
 
     @staticmethod
     def forward(ctx, table: torch.Tensor,
                 tokens: torch.Tensor) -> torch.Tensor:
         ctx.save_for_backward(tokens)
         ctx.table_shape, ctx.table_dtype = table.shape, table.dtype
+        ctx.sharding = active()
         return table.index_select(0, tokens.reshape(-1)).reshape(
             *tokens.shape, table.shape[1])
 
@@ -74,21 +90,37 @@ class _EmbedLookup(torch.autograd.Function):
         tokens, = ctx.saved_tensors
         V, D = ctx.table_shape
         acc = torch.promote_types(ctx.table_dtype, torch.float32)
-        dtable = torch.zeros((V, D), dtype=acc, device=g.device)
-        dtable.index_add_(0, tokens.reshape(-1), g.reshape(-1, D).to(acc))
-        return dtable.to(ctx.table_dtype), None
+        if isinstance(g, DTensor):
+            with use_sharding(ctx.sharding.mesh, ctx.sharding.rules):
+                rows = placements(g.device_mesh, spec_for(
+                    ("batch", "seq", None), g.shape))
+                g = g.redistribute(g.device_mesh, rows)
+                tokens = tokens.redistribute(g.device_mesh, rows)
+                dtable = partial_over_batch(_add_rows(
+                    V, D, acc, tokens.to_local(), g.to_local()), g)
+                return shard(dtable, "vocab", None).to(ctx.table_dtype), None
+        return _add_rows(V, D, acc, tokens, g).to(ctx.table_dtype), None
+
+
+def _add_rows(V: int, D: int, acc: torch.dtype, tokens: torch.Tensor,
+              g: torch.Tensor) -> torch.Tensor:
+    """A zero (V, D) table in ``acc`` with each token's cotangent row
+    added into its row."""
+    dtable = torch.zeros((V, D), dtype=acc, device=g.device)
+    return dtable.index_add_(0, tokens.reshape(-1), g.reshape(-1, D).to(acc))
 
 
 def _embed_tokens(cfg: ModelConfig, params: Tree,
                   batch: Tree) -> torch.Tensor:
     f = _dtype(cfg)
     if cfg.embed_inputs:
-        return batch["embeds"].to(f)
-    x = _EmbedLookup.apply(params["embed"], batch["tokens"].long()).to(f)
+        return shard(batch["embeds"].to(f), "batch", "seq", "embed")
+    table = shard(params["embed"], "vocab", None)
+    x = _EmbedLookup.apply(table, batch["tokens"].long()).to(f)
     if cfg.vision_prefix and "vision_embeds" in batch:
         ve = batch["vision_embeds"].to(f)
         x = torch.cat([ve, x[:, ve.shape[1]:]], dim=1)
-    return x
+    return shard(x, "batch", "seq", "embed")
 
 
 def _dense_block(cfg: ModelConfig, p: Tree, x: torch.Tensor,
@@ -100,7 +132,8 @@ def _dense_block(cfg: ModelConfig, p: Tree, x: torch.Tensor,
     h, _ = attention(cfg, p["attn"], rms_norm(x, p["norm1"], cfg.norm_eps),
                      positions, cache=cache, cache_pos=cache_pos)
     x = x + h
-    return x + _ffn(cfg, p, rms_norm(x, p["norm2"], cfg.norm_eps))
+    return shard(x + _ffn(cfg, p, rms_norm(x, p["norm2"], cfg.norm_eps)),
+                 "batch", "seq", "embed")
 
 
 def _ffn(cfg: ModelConfig, p: Tree, xn: torch.Tensor) -> torch.Tensor:
@@ -111,13 +144,13 @@ def _ffn(cfg: ModelConfig, p: Tree, xn: torch.Tensor) -> torch.Tensor:
 
 def _ssm_block(cfg: ModelConfig, p: Tree, x: torch.Tensor) -> torch.Tensor:
     h, _ = mamba1(cfg, p, rms_norm(x, p["norm"], cfg.norm_eps))
-    return x + h
+    return shard(x + h, "batch", "seq", "embed")
 
 
 def _mamba2_block(cfg: ModelConfig, p: Tree,
                   x: torch.Tensor) -> torch.Tensor:
     h, _ = mamba2(cfg, p, rms_norm(x, p["norm"], cfg.norm_eps))
-    return x + h
+    return shard(x + h, "batch", "seq", "embed")
 
 
 def _groups(cfg: ModelConfig, blocks: Tree) -> List[List[Tree]]:
@@ -130,19 +163,27 @@ def _groups(cfg: ModelConfig, blocks: Tree) -> List[List[Tree]]:
 
 def _logits(cfg: ModelConfig, params: Tree, x: torch.Tensor) -> torch.Tensor:
     x = rms_norm(x, params["final_norm"], cfg.norm_eps)
-    head = params.get("lm_head", params["embed"])
-    return _f32(torch.einsum("bsd,vd->bsv", x, head))
+    head = shard(params.get("lm_head", params["embed"]), "vocab", None)
+    return shard(_f32(torch.einsum("bsd,vd->bsv", x, head)),
+                 "batch", "seq", "vocab")
 
 
 def _remat(fn: Callable[..., torch.Tensor],
            remat: bool) -> Callable[..., torch.Tensor]:
     """``fn``, or, with ``remat``, ``fn`` under activation checkpointing:
-    only its inputs are kept for the backward pass, which runs it again.
-    The model draws no random numbers, so no RNG state is stashed."""
+    only its inputs are kept for the backward pass, which runs it again,
+    under the mesh and rules of the forward.  The model draws no random
+    numbers, so no RNG state is stashed."""
     if not remat:
         return fn
+
+    def contexts():
+        now = active()
+        return contextlib.nullcontext(), use_sharding(now.mesh, now.rules)
+
     return lambda *a: checkpoint(fn, *a, use_reentrant=False,
-                                 preserve_rng_state=False)
+                                 preserve_rng_state=False,
+                                 context_fn=contexts)
 
 
 def forward(cfg: ModelConfig, params: Tree, batch: Tree,
@@ -153,8 +194,8 @@ def forward(cfg: ModelConfig, params: Tree, batch: Tree,
     params = _cast(params, _dtype(cfg))
     x = _embed_tokens(cfg, params, batch)
     B, S, _ = x.shape
-    positions = torch.arange(S, dtype=torch.int32,
-                             device=x.device).expand(B, S)
+    positions = replicate(torch.arange(S, dtype=torch.int32,
+                                       device=x.device).expand(B, S))
     if cfg.family in ("dense", "vlm", "audio", "moe"):
         body = _remat(lambda h, p: _dense_block(cfg, p, h, positions), remat)
         for p in layer_params(params["blocks"], cfg.n_layers):
@@ -179,17 +220,67 @@ def forward(cfg: ModelConfig, params: Tree, batch: Tree,
     return _logits(cfg, params, x)
 
 
+class _TokenNLL(torch.autograd.Function):
+    """Each token's ``logsumexp(logits) - logits[label]``, (B, S), with
+    the gradient autograd gives ``torch.logsumexp`` and ``gather``, bit
+    for bit: ``g * exp(logits - logz)``, less ``g`` at the label.
+
+    The forward is ``torch.logsumexp``'s own algebra: the max (0 where
+    it is infinite), the log of the sum of ``exp(logits - max)``, plus
+    the max.  Under a mesh the vocabulary axis stays split: the max and
+    the sum are reduced across its shards, never gathered, and the gold
+    logit comes from the shard that holds it.  The reference takes gold
+    by a one-hot contraction for that; a one-hot row has one nonzero
+    term, so the gather is the same number, without a second (B, S, V)
+    f32 tensor (5 GB at qwen2-0.5b, B 2, S 4096)."""
+
+    @staticmethod
+    def forward(ctx, logits: torch.Tensor,
+                labels: torch.Tensor) -> torch.Tensor:
+        m = shard(logits.amax(-1, keepdim=True), "batch", "seq", None)
+        m = m.masked_fill(m.abs() == math.inf, 0)
+        total = shard(torch.exp(logits - m).sum(-1), "batch", "seq")
+        logz = torch.log(total) + m[..., 0]
+        # a gather from the split vocabulary is summed over its shards
+        # before the index axis goes: DTensor cannot reduce it after
+        gold = shard(logits.gather(-1, labels[..., None]),
+                     "batch", "seq", None)[..., 0]
+        ctx.save_for_backward(logits, labels, logz)
+        return logz - gold
+
+    @staticmethod
+    def backward(ctx, g: torch.Tensor):
+        logits, labels, logz = ctx.saved_tensors
+        d = g[..., None] * torch.exp(logits - logz[..., None])
+        return _sub_at_labels(d, labels, g), None
+
+
+def _sub_at_labels(d: torch.Tensor, labels: torch.Tensor,
+                   g: torch.Tensor) -> torch.Tensor:
+    """``d`` (B, S, V) less ``g`` (B, S) at each token's label, in place:
+    ``gather``'s gradient, added as autograd adds it.  Under a mesh each
+    rank subtracts where its vocabulary shard holds the label (DTensor
+    has no strategy for a scatter into a split axis)."""
+    if not isinstance(d, DTensor):
+        return d.scatter_add_(-1, labels[..., None], -g[..., None])
+    local, offset = local_shard(d, -1)
+    rows = [Replicate() if p == Shard(d.ndim - 1) else p
+            for p in d.placements]
+    labels, g = (t.redistribute(d.device_mesh, rows).to_local()
+                 for t in (labels, g))
+    at = labels - offset
+    own = (at >= 0) & (at < local.shape[-1])
+    local.scatter_add_(-1, at.clamp(0, local.shape[-1] - 1)[..., None],
+                       torch.where(own, -g, 0.0)[..., None])
+    return d
+
+
 def loss_fn(cfg: ModelConfig, params: Tree, batch: Tree,
             remat: bool = True) -> torch.Tensor:
-    """Mean next-token cross entropy, ``mean(logsumexp(logits) - gold)``.
-    The reference takes ``gold`` by a one-hot contraction (to keep the
-    vocab axis sharded); a one-hot row has one nonzero term, so the
-    gather here is the same number bit for bit, without a second
-    (B, S, V) f32 tensor (5 GB at qwen2-0.5b, B 2, S 4096)."""
+    """Mean next-token cross entropy, ``mean(logsumexp(logits) - gold)``
+    (:class:`_TokenNLL`)."""
     logits = forward(cfg, params, batch, remat=remat)
-    logz = torch.logsumexp(logits, dim=-1)
-    gold = logits.gather(-1, batch["labels"].long()[..., None])[..., 0]
-    return (logz - gold).mean()
+    return _TokenNLL.apply(logits, batch["labels"].long()).mean()
 
 
 # ------------------------------------------------------------------ decode
@@ -236,6 +327,13 @@ def init_cache(cfg: ModelConfig, batch: int, max_seq: int,
                device: Union[str, torch.device] = "cuda") -> Tree:
     return tree_map(lambda s: torch.zeros(s.shape, dtype=s.dtype,
                                           device=device),
+                    cache_specs(cfg, batch, max_seq))
+
+
+def abstract_cache(cfg: ModelConfig, batch: int, max_seq: int) -> Tree:
+    """The decode state as meta tensors (the dry run's)."""
+    return tree_map(lambda s: torch.empty(s.shape, dtype=s.dtype,
+                                          device="meta"),
                     cache_specs(cfg, batch, max_seq))
 
 

@@ -2,8 +2,10 @@
 and initializers, and the tensors made from them.
 
 Twin of :mod:`repro.models.params`.  ``ParamSpec.axes`` keeps the
-reference's logical axis names as data; nothing here shards (a
-``torch.distributed`` DeviceMesh is later work, ``ROADMAP.md``).
+reference's logical axis names; under a mesh (``sharding.use_sharding``)
+:func:`param_shardings` turns them into DTensor placements and
+:func:`distribute_params` lays a tree out by them, and
+:func:`abstract_params` gives meta tensors for the dry run.
 ``param_specs`` covers every family, because the planner's cost model
 (``planner/cost_model.py::hbm_bytes``) sizes every architecture's
 weights through :func:`param_bytes`.
@@ -17,6 +19,7 @@ import numpy as np
 import torch
 
 from ..configs.base import ModelConfig
+from .sharding import distribute, param_sharding
 
 Tree = Dict[str, Any]
 
@@ -209,3 +212,23 @@ def init_params(cfg: ModelConfig, generator: Optional[torch.Generator] = None,
 def param_bytes(cfg: ModelConfig) -> int:
     specs = tree_leaves(param_specs(cfg))
     return sum(int(np.prod(s.shape)) * s.dtype.itemsize for s in specs)
+
+
+def abstract_params(cfg: ModelConfig) -> Tree:
+    """The parameter tree as meta tensors: shapes and dtypes, no data."""
+    return tree_map(lambda s: torch.empty(s.shape, dtype=s.dtype,
+                                          device="meta"), param_specs(cfg))
+
+
+def param_shardings(cfg: ModelConfig) -> Tree:
+    """Each parameter's placements on the active mesh (None leaves
+    without one)."""
+    return tree_map(lambda s: param_sharding(s.axes, s.shape),
+                    param_specs(cfg))
+
+
+def distribute_params(cfg: ModelConfig, params: Tree) -> Tree:
+    """``params``, a whole tree every rank holds, as DTensors laid out by
+    :func:`param_shardings` on the active mesh, each rank keeping its
+    own shards."""
+    return tree_map(distribute, params, param_shardings(cfg))

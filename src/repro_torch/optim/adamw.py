@@ -8,6 +8,13 @@ of the f32 checks), ``step`` an int32 scalar.  Every function maps
 trees to new trees and writes nothing it was given.  The schedule and
 the bias corrections are f32 tensor arithmetic, as the reference
 computes them.
+
+Under a mesh the leaves are DTensors: ``mu`` and ``nu`` are laid out
+like their parameter (``opt_shardings``), the step is replicated, the
+grad norm is the global one, and each leaf's update runs on the rank's
+own shards of the parameter, its gradient and its moments, which must
+all have the parameter's placements (a gradient still ``Partial`` over
+a mesh axis raises).
 """
 from __future__ import annotations
 
@@ -16,10 +23,12 @@ import math
 from typing import Dict, NamedTuple, Tuple
 
 import torch
+from torch.distributed.tensor import DTensor, Replicate, distribute_tensor
 
 from ..configs.base import ModelConfig
 from ..models.params import ParamSpec, Tree, param_specs, tree_leaves, \
     tree_map
+from ..models.sharding import full
 
 
 class OptState(NamedTuple):
@@ -47,11 +56,25 @@ def _wide(dtype: torch.dtype) -> torch.dtype:
 
 
 def init_opt_state(params: Tree) -> OptState:
+    """Zero moments laid out like the parameters, step 0 (replicated on
+    the parameters' mesh when they are DTensors)."""
     z = tree_map(lambda p: torch.zeros_like(p, dtype=_wide(p.dtype)),
                  params)
-    device = tree_leaves(params)[0].device
-    return OptState(z, tree_map(torch.clone, z),
-                    torch.zeros((), dtype=torch.int32, device=device))
+    leaf = tree_leaves(params)[0]
+    step = torch.zeros((), dtype=torch.int32, device=leaf.device)
+    if isinstance(leaf, DTensor):
+        mesh = leaf.device_mesh
+        step = distribute_tensor(step, mesh, [Replicate()] * mesh.ndim,
+                                 src_data_rank=None)
+    return OptState(z, tree_map(torch.clone, z), step)
+
+
+def abstract_opt_state(cfg: ModelConfig) -> OptState:
+    """The optimizer state as meta tensors (f32 moments, int32 step)."""
+    ab = tree_map(lambda s: torch.empty(s.shape, dtype=torch.float32,
+                                        device="meta"), param_specs(cfg))
+    return OptState(ab, tree_map(torch.empty_like, ab),
+                    torch.empty((), dtype=torch.int32, device="meta"))
 
 
 def opt_state_specs(cfg: ModelConfig) -> OptState:
@@ -71,8 +94,9 @@ def _schedule(cfg: AdamWConfig, step: torch.Tensor) -> torch.Tensor:
 
 def global_norm(tree: Tree) -> torch.Tensor:
     """sqrt of the sum of squares of every leaf (in f32, f64 for f64
-    leaves), the leaves summed in :func:`tree_leaves` order."""
-    return torch.sqrt(sum(torch.sum(g.to(_wide(g.dtype)) ** 2)
+    leaves), the leaves summed in :func:`tree_leaves` order; a DTensor
+    leaf's sum is over all its shards (every rank must call)."""
+    return torch.sqrt(sum(full(torch.sum(g.to(_wide(g.dtype)) ** 2))
                           for g in tree_leaves(tree)))
 
 
@@ -83,14 +107,28 @@ def adamw_update(opt_cfg: AdamWConfig, params: Tree, grads: Tree,
     gnorm = global_norm(grads)
     scale = torch.clamp_max(opt_cfg.clip_norm / (gnorm + 1e-9), 1.0)
     step = state.step + 1
-    lr = _schedule(opt_cfg, state.step)
+    lr = full(_schedule(opt_cfg, state.step))
     b1, b2 = opt_cfg.b1, opt_cfg.b2
-    t = step.to(torch.float32)
+    t = full(step).to(torch.float32)
     bc1 = 1.0 - b1 ** t
     bc2 = 1.0 - b2 ** t
 
     def leaf(p: torch.Tensor, g: torch.Tensor, m: torch.Tensor,
              v: torch.Tensor) -> Tuple[torch.Tensor, ...]:
+        if not isinstance(p, DTensor):
+            return local(p, g, m, v)
+        for name, x in (("gradient", g), ("mu", m), ("nu", v)):
+            if x.placements != p.placements:
+                raise ValueError(f"AdamW: the {name} is laid out "
+                                 f"{x.placements}, its parameter "
+                                 f"{p.placements}")
+        return tuple(DTensor.from_local(
+            o, p.device_mesh, p.placements, run_check=False, shape=p.shape,
+            stride=p.stride()) for o in local(
+                *(x.to_local() for x in (p, g, m, v))))
+
+    def local(p: torch.Tensor, g: torch.Tensor, m: torch.Tensor,
+              v: torch.Tensor) -> Tuple[torch.Tensor, ...]:
         g = g.to(_wide(g.dtype)) * scale
         m = b1 * m + (1 - b1) * g
         v = b2 * v + (1 - b2) * g * g

@@ -597,8 +597,11 @@ def test_launcher_runs_the_seeded_step():
 
 
 def test_launcher_refuses_a_mesh():
-    with pytest.raises(SystemExit, match="sharding slice"):
+    """Run alone, the launcher has one rank: a mesh of two is refused,
+    and no process group is left behind."""
+    with pytest.raises(RuntimeError, match="process group of 2 ranks"):
         LT.main(LAUNCH + ["--mesh", "2x1"])
+    assert not torch.distributed.is_initialized()
 
 
 def test_train_entry_points_default_to_the_card(tmp_path):
