@@ -25,7 +25,11 @@ tasks) and the scheduler service (``repro_torch.service``, the exp10
 trace of 8 tenants with coalescing on and off), all on the card, and
 holds every plan bit for bit to the port's scalar session on the same
 calls (a fault replan also to a fresh session started with its faults,
-a service fleet to a scalar ``submit_many`` of the final state).  It
+a service fleet to a scalar ``submit_many`` of the final state).  Phase
+``backend_auto`` runs the paper submits and the exp9 fault script under
+``backend="auto"`` (scalar at P 3, vector at P 8) and ``"vector"``
+beside a ``"cuda"`` session, every host plan bit for bit to the card's,
+and prints each backend's wall seconds.  It
 then drives the kernel entry points (``repro_torch.kernels.*.ops``) at
 published model widths — attention at qwen3-8b, qwen2-0.5b and
 hubert-xlarge width (each in bf16 and in f32), the selective scan at
@@ -79,12 +83,18 @@ group, a DeviceMesh, every parameter, optimizer leaf and batch input a
 DTensor) for 3 steps at the train phase's size and seed, held to the
 train phase's first steps (losses at the restart rtol, grad norms at
 1e-3, and whether each is bit for bit) with ms a step beside the
-mesh-less step; the loss head against ``torch.logsumexp`` and
+mesh-less step, then a save and a restore of its state through the
+sharded checkpoint (every leaf bit-equal, the seconds of each, the
+save's device peak within 64 MiB of the bytes allocated before it); the
+loss head against ``torch.logsumexp`` and
 ``gather`` bit for bit; the dry run (``launch/dryrun.py``) at full size
 on meta tensors in a process that sees no card (dbrx-132b decode_32k on
 the 16 x 16 pod, dbrx-132b train_4k on the 2 x 16 x 16 multi-pod,
-qwen3-8b train_4k on the pod: each rank's bytes under the card's
-memory, no all-gather of a train cell's logits); and 4 CPU ranks (gloo,
+qwen3-8b train_4k on the pod: each rank's state under the card's
+memory, each cell's peak with activations beside it, no all-gather of
+a train cell's logits), and the dry run's peak of the launcher's own
+step on a (1, 1) mesh against the bytes the card allocated for it
+(within 0.85-1.15); and 4 CPU ranks (gloo,
 2 x 2) at full width, 2 layers, f64, one train step of qwen2-0.5b and
 olmoe-1b-7b held to the same step on one rank (the card, no mesh) at
 1e-10 relative by norm.
@@ -153,6 +163,8 @@ from repro_torch.kernels.flash_attention.ref import \
 from repro_torch.kernels.ssm_scan import kernel as SS  # noqa: E402
 from repro_torch.kernels.ssm_scan.ops import selective_scan  # noqa: E402
 from repro_torch.kernels.ssm_scan.ref import selective_scan_ref  # noqa: E402
+from repro_torch.checkpoint import restore as ckpt_restore  # noqa: E402
+from repro_torch.checkpoint import save as ckpt_save  # noqa: E402
 from repro_torch.checkpoint.checkpoint import \
     _paths as ckpt_paths  # noqa: E402
 from repro_torch.data import SyntheticTokenPipeline  # noqa: E402
@@ -161,7 +173,9 @@ from repro_torch.launch.train import (init_state, resume,  # noqa: E402
                                       start_group, train_loop)
 from repro_torch.launch.mesh import make_mesh  # noqa: E402
 from repro_torch.models.sharding import full, use_sharding  # noqa: E402
-from repro_torch.train.step import batch_shardings  # noqa: E402
+from repro_torch.train.step import (batch_shardings,  # noqa: E402
+                                    opt_shardings)
+from repro_torch.models.params import param_shardings  # noqa: E402
 from repro_torch.models import (distribute_params,  # noqa: E402
                                 init_params, param_specs, tree_leaves)
 from repro_torch.models import layers as L  # noqa: E402
@@ -258,6 +272,16 @@ TRAIN_PARITY_LAYERS, TRAIN_PARITY_BATCH, TRAIN_PARITY_SEQ = 2, 2, 512
 # reordered sum would move it far more than the loss); both bit for bit
 # where DTensor dispatches the same local ops, which the line reports
 MESH_STEPS, MESH_GNORM_RTOL = 3, 1e-3
+# the checkpoint after the mesh steps: the save's device peak may exceed
+# the bytes allocated before it by no more than this (no leaf is copied
+# on the card; the host copies are pageable)
+MESH_CKPT_SLACK = 64 << 20
+# the dry run's peak of the launcher's own step over meta tensors against
+# the bytes the card allocated for the launcher
+DRYRUN_PEAK_RATIO = (0.85, 1.15)
+# the backend names a session accepts besides the default: each runs
+# the paper submits and the exp9 fault script (phase backend_auto)
+BACKEND_NAMES = ("cuda", "auto", "vector")
 # the dry run at full size on meta tensors (fake groups of 256 and 512
 # ranks), each rank's bytes under the card's memory
 DRYRUN_CELLS = (("dbrx-132b", "decode_32k", "pod"),
@@ -718,9 +742,10 @@ def recording_resumed(fn):
 
 
 def same_plan(what, got, want) -> None:
-    """A plan of the card held to the port's scalar session, bit for bit:
-    every grid makespan, the best alpha, the best schedule's placements,
-    start and finish times and message placements, the period."""
+    """A plan of the card held to a host session's (the port's scalar,
+    vector or auto backend) bit for bit: every grid makespan, the best
+    alpha, the best schedule's placements, start and finish times and
+    message placements, the period."""
     ok = (got.period == want.period
           and (got.sweep is None) == (want.sweep is None)
           and all(np.array_equal(getattr(got.schedule, f),
@@ -734,7 +759,7 @@ def same_plan(what, got, want) -> None:
               and got.sweep.best_alpha == want.sweep.best_alpha)
     if not ok or got.fallback is not None or got.backend != "cuda":
         raise AssertionError(f"{what}: the card's plan differs from the "
-                             f"scalar session's")
+                             f"{want.backend} session's")
 
 
 def same_replay(what, got, want) -> dict:
@@ -892,6 +917,26 @@ def phase_update(drive, paths, g7, tg7, q7s) -> dict:
             "launches": paths["exp7_update"]}
 
 
+def exp9_fault_calls(g9, tg9):
+    """The exp9 fault script: submit, mark_failed of the processor that
+    starts first, degrade of a link, mark_failed of the cold standby's
+    link, degrade of a sink task, restore of the processor.  Returns the
+    processor and the calls."""
+    probe9 = Scheduler(tg9, policy=EXP9_POLICY, backend="scalar")
+    p9 = probe9.submit(g9)
+    hot = int(p9.schedule.proc[np.argmin(p9.schedule.start)])
+    sink = [t for t in range(g9.n) if not g9.succ[t]][-1]
+    # l8 is the cold standby's link: the only link of this graph whose
+    # loss leaves every committed prefix feasible (the others partition
+    # it, as benchmarks/exp9_faults.py finds link by link)
+    return hot, [("submit", "submit", dict(g=g9)),
+                 ("mark_failed_proc", "mark_failed", dict(proc=hot)),
+                 ("degrade_link", "degrade", dict(link="l3", factor=2.0)),
+                 ("mark_failed_link", "mark_failed", dict(link="l8")),
+                 ("degrade_task", "degrade", dict(task=sink, factor=2.0)),
+                 ("restore_proc", "restore", dict(proc=hot))]
+
+
 def phase_faults(drive, paths, gp, tgp) -> dict:
     """Faults: the paper drill, then mark_failed / degrade / restore at
     the exp9 deployment, each plan held to the scalar session and to a
@@ -908,19 +953,7 @@ def phase_faults(drive, paths, gp, tgp) -> dict:
     assert schedule_violations(failed.schedule, drill.faults) == []
     assert failed.backend == "cuda" and failed.fallback is None
     g9, tg9 = exp9_instance()
-    probe9 = Scheduler(tg9, policy=EXP9_POLICY, backend="scalar")
-    p9 = probe9.submit(g9)
-    hot = int(p9.schedule.proc[np.argmin(p9.schedule.start)])
-    sink = [t for t in range(g9.n) if not g9.succ[t]][-1]
-    # l8 is the cold standby's link: the only link of this graph whose
-    # loss leaves every committed prefix feasible (the others partition
-    # it, as benchmarks/exp9_faults.py finds link by link)
-    fcalls = [("submit", "submit", dict(g=g9)),
-              ("mark_failed_proc", "mark_failed", dict(proc=hot)),
-              ("degrade_link", "degrade", dict(link="l3", factor=2.0)),
-              ("mark_failed_link", "mark_failed", dict(link="l8")),
-              ("degrade_task", "degrade", dict(task=sink, factor=2.0)),
-              ("restore_proc", "restore", dict(proc=hot))]
+    hot, fcalls = exp9_fault_calls(g9, tg9)
     cu9 = Scheduler(tg9, policy=EXP9_POLICY)
     sc9 = Scheduler(tg9, policy=EXP9_POLICY, backend="scalar")
     fault_rows = {}
@@ -954,6 +987,63 @@ def phase_faults(drive, paths, gp, tgp) -> dict:
                      "calls": fault_rows},
             "launches": {k: paths[k]
                          for k in ("paper_faults", "exp9_faults")}}
+
+
+def phase_backends(drive, paths, gp, tgp) -> dict:
+    """The backend names a reference user passes: ``auto`` and ``vector``
+    sessions beside a ``cuda`` one on the same calls.  The paper example
+    (P 3: ``auto`` resolves to scalar) submits under each policy; the
+    exp9 deployment (8 ECUs, link-disjoint routes: ``auto`` resolves to
+    vector) runs its fault script.  Every host plan is held bit for bit
+    to the cuda plan of the same call (ReplayStats too, bar the fused
+    sweep's counts); the host backends launch no kernel.  Wall seconds
+    of each backend's calls."""
+    t_phase = time.perf_counter()
+    policies = (HSV_CC(), HVLB_CC_B(**PAPER_POLICY),
+                HVLB_CC_IC(**PAPER_POLICY))
+    g9, tg9 = exp9_instance()
+    _, fcalls = exp9_fault_calls(g9, tg9)
+    runs = {}
+    for b in BACKEND_NAMES:
+        sp = Scheduler(tgp, backend=b)
+        t0 = time.perf_counter()
+        paper = drive(f"backend_{b}_paper",
+                      lambda: [sp.submit(gp, pol) for pol in policies])
+        paper_s = time.perf_counter() - t0
+        s9 = Scheduler(tg9, policy=EXP9_POLICY, backend=b)
+        t0 = time.perf_counter()
+        exp9 = drive(f"backend_{b}_exp9", lambda: timed_calls(s9, fcalls))
+        runs[b] = (paper, paper_s, exp9, time.perf_counter() - t0)
+    cuda_paper, _, cuda_exp9, _ = runs["cuda"]
+    out = {}
+    for b, (paper, paper_s, exp9, exp9_s) in runs.items():
+        resolved = {"paper": sorted({p.backend for p in paper}),
+                    "exp9": sorted({r[1].backend for r in exp9})}
+        want = {"cuda": ("cuda", "cuda"), "vector": ("vector", "vector"),
+                "auto": ("scalar", "vector")}[b]
+        assert (resolved["paper"], resolved["exp9"]) == \
+            ([want[0]], [want[1]]), (b, resolved)
+        row = {"resolved": {"paper": want[0], "exp9": want[1]},
+               "paper_s": paper_s, "exp9_s": exp9_s,
+               "exp9_calls_s": {r[0]: r[2] for r in exp9},
+               "launches": {k: paths[f"backend_{b}_{k}"]
+                            for k in ("paper", "exp9")}}
+        if b != "cuda":
+            for pol, got, want_p in zip(policies, cuda_paper, paper):
+                same_plan(f"paper {type(pol).__name__} {b}", got, want_p)
+            for (name, got, *_), (_, want_p, *_) in zip(cuda_exp9, exp9):
+                same_plan(f"exp9 {name} {b}", got, want_p)
+                same_replay(f"exp9 {name} {b}", got, want_p)
+            assert all(n == 0 for k in ("paper", "exp9")
+                       for n in paths[f"backend_{b}_{k}"].values()), row
+        out[b] = row
+    return {"phase": "backend_auto", "P": {"paper": tgp.n_procs,
+                                           "exp9": tg9.n_procs},
+            "n": {"paper": gp.n, "exp9": g9.n},
+            "policies": [type(p).__name__ for p in policies],
+            "exp9_calls": [c[0] for c in fcalls], "backends": out,
+            "bit_identical_to_cuda": True,
+            "phase_s": time.perf_counter() - t_phase}
 
 
 def phase_service(drive, paths) -> dict:
@@ -1757,10 +1847,13 @@ def phase_train(drive, paths) -> dict:
     infos = []
 
     def run(start, stop):
+        # one step a call, as the launcher steps: the state held here is
+        # each step's input, not the first step's through every step
         nonlocal params, opt
-        params, opt, got = train_loop(step_fn, pipe, params, opt, start,
-                                      stop, "cuda", log=None)
-        infos.extend(got)
+        for s in range(start, stop):
+            params, opt, got = train_loop(step_fn, pipe, params, opt, s,
+                                          s + 1, "cuda", log=None)
+            infos.extend(got)
 
     run(0, TRAIN_WARMUP)
     torch.cuda.synchronize()
@@ -1839,11 +1932,15 @@ def mesh_launcher(drive, train) -> dict:
         mesh = make_mesh((1, 1), ("data", "model"), "cuda")
         torch.cuda.empty_cache()
         torch.cuda.reset_peak_memory_stats()
+        before = torch.cuda.memory_allocated()
         with use_sharding(mesh):
             params, opt = init_state(cfg, 0, "cuda")
             leaves = tree_leaves(params) + tree_leaves(opt.mu) + \
                 tree_leaves(opt.nu) + [opt.step]
             assert all(isinstance(x, DTensor) for x in leaves)
+            # the steps replace the state: a list kept here would hold the
+            # first one on the card through every step
+            del leaves
             place = batch_shardings(cfg, shape)
             infos, step_ms = [], []
 
@@ -1860,8 +1957,11 @@ def mesh_launcher(drive, train) -> dict:
 
             drive("mesh_train", run)
             assert all(isinstance(x, DTensor) for x in tree_leaves(params))
+            peak = torch.cuda.max_memory_allocated()
+            reset_all_launches()
+            ckpt = mesh_checkpoint(cfg, params, opt)
+            assert all(v == 0 for v in all_launches().values())
             del params, opt
-        peak = torch.cuda.max_memory_allocated()
     finally:
         if own:
             dist.destroy_process_group()
@@ -1887,35 +1987,108 @@ def mesh_launcher(drive, train) -> dict:
             "step_ms": step_ms, "first_step_ms": step_ms[0],
             "ms_per_step": sum(steady) / len(steady),
             "meshless_ms_per_step": train["ms_per_step"],
-            "max_memory_allocated_bytes": peak}
+            "max_memory_allocated_bytes": peak,
+            "memory_allocated_before_bytes": before,
+            "own_peak_bytes": peak - before, "checkpoint": ckpt}
+
+
+def mesh_checkpoint(cfg, params, opt) -> dict:
+    """The sharded checkpoint on the launcher's one-rank NCCL (1, 1)
+    mesh at full size: ``save`` (each rank's shards to the host, written
+    into the files) and ``restore`` (each rank's rows read from the
+    files, then moved to the card) of the state the mesh steps left.
+    Every restored leaf is a DTensor of the saved placements, bit-equal
+    to the saved one; the save's device peak, measured from a reset,
+    stays within ``MESH_CKPT_SLACK`` of the bytes allocated before it
+    (no leaf is copied on the card)."""
+    d = ROOT / "build" / "mesh_ckpt"
+    shutil.rmtree(d, ignore_errors=True)
+    state = {"p": params, "o": opt}
+    torch.cuda.synchronize()
+    before = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    ckpt_save(d, 1, state)
+    save_s = time.perf_counter() - t0
+    save_peak = torch.cuda.max_memory_allocated()
+    if save_peak > before + MESH_CKPT_SLACK:
+        raise AssertionError(f"checkpoint save: device peak {save_peak} "
+                             f"bytes, {before} allocated before it")
+    disk = sum(f.stat().st_size for f in (d / "step_1").iterdir())
+    t0 = time.perf_counter()
+    back = ckpt_restore(d, 1, state, "cuda", {"p": param_shardings(cfg),
+                                              "o": opt_shardings(cfg)})
+    torch.cuda.synchronize()
+    restore_s = time.perf_counter() - t0
+    saved, got = ckpt_paths(state), ckpt_paths(back)
+    n = 0
+    for (k, a), (k2, b) in zip(saved, got):
+        if not (k == k2 and isinstance(b, DTensor)
+                and b.placements == a.placements
+                and torch.equal(a.to_local(), b.to_local())):
+            raise AssertionError(f"checkpoint: leaf {k} restored unequal")
+        n += 1
+    del back
+    shutil.rmtree(d)
+    return {"entry": "repro_torch.checkpoint save / restore(placements=)",
+            "mesh": {"data": 1, "model": 1}, "backend": "nccl",
+            "leaves": n, "bit_equal": True, "file_bytes": disk,
+            "save_s": save_s, "restore_s": restore_s,
+            "save_max_memory_allocated_bytes": save_peak,
+            "allocated_before_save_bytes": before,
+            "save_device_growth_bytes": save_peak - before,
+            "slack_bytes": MESH_CKPT_SLACK}
 
 
 DRYRUN_SCRIPT = """
 import json, sys
 sys.path.insert(0, sys.argv[1])
 import repro_torch.launch.dryrun as D
+from repro_torch.configs.base import ShapeConfig
+from repro_torch.launch.mesh import make_mesh
 for cell in json.loads(sys.argv[2]):
     print(json.dumps(D.run_cell(*cell)), flush=True)
+arch, seq, batch, micro = json.loads(sys.argv[3])
+D.fake_group(1)
+mesh = make_mesh((1, 1), ("data", "model"), "cpu")
+print(json.dumps({"launcher_step": D.step_memory(
+    arch, ShapeConfig("train", seq, batch, "train"), mesh,
+    microbatch=micro)}), flush=True)
 """
 
 
-def mesh_dryrun() -> dict:
+def mesh_dryrun(launcher) -> dict:
     """``launch/dryrun.py``'s ``run_cell`` on each of ``DRYRUN_CELLS`` at
     full size, in a process of its own that sees no card (its fake group
-    must not meet this process's); every rank's bytes under the card's
+    must not meet this process's); every rank's state under the card's
     memory, and no all-gather in a train cell as large as one rank's
-    (B, S, V) f32 logits gathered over the vocabulary."""
+    (B, S, V) f32 logits gathered over the vocabulary.  Each cell's peak
+    (state and activations) is reported against the card's memory, not
+    asserted.  Then ``step_memory`` of ``launcher``'s own step (the same
+    cell on a (1, 1) mesh over meta tensors) against the bytes the card
+    allocated for it: the launcher's peak less what was allocated before
+    it began, within ``DRYRUN_PEAK_RATIO``."""
     env = dict(os.environ, CUDA_VISIBLE_DEVICES="")
     t0 = time.perf_counter()
+    own = [launcher["arch"], launcher["seq"], launcher["batch"],
+           launcher["microbatch"]]
     out = subprocess.run([sys.executable, "-c", DRYRUN_SCRIPT,
-                          str(ROOT / "src"), json.dumps(DRYRUN_CELLS)],
+                          str(ROOT / "src"), json.dumps(DRYRUN_CELLS),
+                          json.dumps(own)],
                          capture_output=True, text=True, env=env)
     wall = time.perf_counter() - t0
     if out.returncode:
         raise RuntimeError(f"the dry run failed:\n{out.stderr[-4000:]}")
     card = torch.cuda.get_device_properties(0).total_memory
+    recs = list(map(json.loads, out.stdout.splitlines()))
+    step = recs.pop()["launcher_step"]
+    ratio = step["peak_bytes"] / launcher["own_peak_bytes"]
+    if not DRYRUN_PEAK_RATIO[0] <= ratio <= DRYRUN_PEAK_RATIO[1]:
+        raise AssertionError(f"dry-run peak {step['peak_bytes']} bytes of "
+                             f"the launcher's step, the card's "
+                             f"{launcher['own_peak_bytes']}")
     cells = {}
-    for rec in map(json.loads, out.stdout.splitlines()):
+    for rec in recs:
         name = f"{rec['arch']}/{rec['shape']}/{rec['mesh']}"
         mem = rec["memory"]
         if not mem["total_bytes"] < card:
@@ -1932,12 +2105,29 @@ def mesh_dryrun() -> dict:
                 raise AssertionError(f"dry run {name}: an all-gather of "
                                      f"{gather} bytes, the logits {logits}")
         cells[name] = {"ranks": rec["chips"], "memory": mem,
+                       "peak_bytes": mem["peak_bytes"],
+                       "temp_bytes": mem["temp_bytes"],
+                       "peak_over_card": mem["peak_bytes"] > card,
                        "flops_per_rank": rec["cost"]["flops"],
                        "collectives": rec["collectives"],
                        "wall_s": rec["lower_s"]}
     assert len(cells) == len(DRYRUN_CELLS), cells
     return {"entry": "repro_torch.launch.dryrun.run_cell",
             "card_total_memory_bytes": card, "cells": cells,
+            "launcher_step": {
+                "entry": "repro_torch.launch.dryrun.step_memory",
+                "mesh": {"data": 1, "model": 1}, "memory": step,
+                "peak_bytes": step["peak_bytes"],
+                "card_max_memory_allocated_bytes":
+                    launcher["max_memory_allocated_bytes"],
+                "card_allocated_before_bytes":
+                    launcher["memory_allocated_before_bytes"],
+                "card_own_peak_bytes": launcher["own_peak_bytes"],
+                "ratio_to_own_peak": ratio,
+                "ratio_to_max_memory_allocated":
+                    step["peak_bytes"] / launcher[
+                        "max_memory_allocated_bytes"],
+                "limits": DRYRUN_PEAK_RATIO},
             "process_wall_s": wall}
 
 
@@ -2122,7 +2312,9 @@ def phase_mesh(drive, paths, train) -> dict:
     out = {"phase": "mesh", "launcher": mesh_launcher(drive, train)}
     assert all(v == 0 for v in paths["mesh_train"].values()), paths
     out["loss_head"] = token_nll_vs_torch()
-    out["dryrun"] = mesh_dryrun()
+    t0 = time.perf_counter()
+    out["dryrun"] = mesh_dryrun(out["launcher"])
+    out["dryrun"]["part_s"] = time.perf_counter() - t0
     t0 = time.perf_counter()
     out["cpu_ranks"] = mesh_cpu()
     out["cpu_ranks"]["phase_s"] = time.perf_counter() - t0
@@ -2339,6 +2531,7 @@ def main() -> int:
     upd = phase_update(drive, paths, g7, tg7, q7s)
     emit(upd)
     emit(phase_faults(drive, paths, gp, tgp))
+    emit(phase_backends(drive, paths, gp, tgp))
     emit(phase_service(drive, paths))
 
     # ---- 5. the attention entry point at published widths: all cases

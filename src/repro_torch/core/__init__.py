@@ -2,14 +2,16 @@
 list scheduling for stream-processing DAGs on heterogeneous processors
 and networks, with the candidate evaluation on the card.
 
-Exports what ``repro.core`` exports, except the reference's NumPy
-``VectorBackend`` and its ``default_backend`` selection (the port's
-backends are ``cuda``, the default, and ``scalar``).
+Exports what ``repro.core`` exports, except the reference's
+``default_backend`` (the port's default is ``cuda``, and it reads no
+environment variable); its backends are ``cuda``, ``scalar``,
+``vector`` and ``auto``.
 """
 from .api import (HSV_CC, HVLB_CC_A, HVLB_CC_B, HVLB_CC_IC, FleetPlan,
                   Plan, Policy, ReplayStats, Scheduler, SweepResult)
-from .backends import (CandidateEvaluator, CudaBackend, ScalarBackend,
-                       available_backends, resolve_backend_name)
+from .backends import (BackendCompatError, CandidateEvaluator, CudaBackend,
+                       ScalarBackend, VectorBackend, available_backends,
+                       resolve_backend_name, vector_compatible)
 from .convert import (spg_arrays, spg_from_arrays, topology_arrays,
                       topology_from_arrays)
 from .engine import (DEFAULT_BATCH_MAX, CompiledInstance, DecisionTrace,
@@ -36,8 +38,9 @@ __all__ = [
     "HSV_CC", "HVLB_CC_A", "HVLB_CC_B", "HVLB_CC_IC", "SweepResult",
     "CompiledInstance", "DecisionTrace", "DEFAULT_BATCH_MAX", "plan_waves",
     # candidate-evaluation backends
-    "CandidateEvaluator", "CudaBackend", "ScalarBackend",
-    "available_backends", "resolve_backend_name",
+    "BackendCompatError", "CandidateEvaluator", "CudaBackend",
+    "ScalarBackend", "VectorBackend", "available_backends",
+    "resolve_backend_name", "vector_compatible",
     "spg_arrays", "spg_from_arrays", "topology_arrays",
     "topology_from_arrays",
     # fault model + independent validation

@@ -28,7 +28,7 @@ from ..faults import WaveTimeoutError
 if TYPE_CHECKING:                                   # pragma: no cover
     from ..engine import CompiledInstance
 
-__all__ = ["CandidateEvaluator", "Decision"]
+__all__ = ["BackendCompatError", "CandidateEvaluator", "Decision"]
 
 _INF = float("inf")
 
@@ -38,6 +38,16 @@ _INF = float("inf")
 # with ``msgs`` = [(pred, route, [(link_id, lst, lft), ...]), ...].
 Decision = Tuple[int, float, float, list, Optional[tuple], Optional[tuple],
                  float]
+
+
+class BackendCompatError(ValueError):
+    """The instance's topology cannot be expressed by this backend.
+
+    Raised by :func:`~..backends.resolve_backend_name` when an explicit
+    backend request is incompatible with the topology (so no session
+    state is ever keyed for a plan that cannot be built), and
+    defensively by backend constructors.
+    """
 
 
 class CandidateEvaluator(abc.ABC):

@@ -404,8 +404,9 @@ def wave_plain(T: RouteTables, task: torch.Tensor, real: torch.Tensor,
     alpha_t = torch.full((1, 1), alpha, dtype=torch.float64, device=dev)
     period_t = torch.full((1, P), period, dtype=torch.float64, device=dev)
     cols: List[Tuple[torch.Tensor, ...]] = []
-    for b, (j, r, x) in enumerate(zip(task.tolist(), real.tolist(),
-                                      exitf.tolist())):
+    # analysis: allow[host-sync] the plain version runs on the CPU only: no device to wait for
+    task_l, real_l, exit_l = task.tolist(), real.tolist(), exitf.tolist()
+    for b, (j, r, x) in enumerate(zip(task_l, real_l, exit_l)):
         outs, st = _decide_plain(T, j, bool(x), bool(r), paft[b:b + 1],
                                  psrc[b:b + 1], pedge[b:b + 1], alpha_t,
                                  period_t, st)
@@ -435,6 +436,7 @@ def plan_plain(T: RouteTables, task: torch.Tensor, real: torch.Tensor,
     alpha_t = alphas[:, None]
     period_t = torch.full((A, P), period, dtype=torch.float64, device=dev)
     out = _empty_out((A, W, B), K, T, dev)
+    # analysis: allow[host-sync] the plain version runs on the CPU only: no device to wait for
     task_l, real_l, exit_l = task.tolist(), real.tolist(), exitf.tolist()
     for wv in range(W):
         for b in range(B):
@@ -610,6 +612,7 @@ def crossings(win: np.ndarray, ca: np.ndarray, cb: np.ndarray,
 def _fetch(out: PlanOut) -> Tuple[np.ndarray, ...]:
     """Fetch the decisions to the host: ``(win, est, eft, ca, cb, lst,
     lft, route)`` as the kernels wrote them."""
+    # analysis: allow[host-sync] the documented one fetch per dispatch: every decision of the wave or plan decodes from it
     return tuple(t.cpu().numpy() for t in out.tensors())
 
 
@@ -761,7 +764,9 @@ class CudaBackend(CandidateEvaluator):
         fetched = _fetch(out)
         self.n_roundtrips += 1
         bound = crossings(fetched[0], fetched[3], fetched[4], self.alpha)
+        # analysis: allow[host-sync] NumPy arrays the one fetch already brought to the host
         win, est, eft, ca, cb, lst, lft, route = (x.tolist() for x in fetched)
+        # analysis: allow[host-sync] NumPy arrays the one fetch already brought to the host
         bound = bound.tolist()
         decisions: List[Decision] = []
         for b, j in enumerate(js):
@@ -834,6 +839,7 @@ class CudaBackend(CandidateEvaluator):
         out, _state, _aft, _proc = sched_plan(**args)
         self.n_launches += 1
         if self.device.type == "cuda":
+            # analysis: allow[host-sync] ends the kernel's share of last_timing; the fetch right after waits for it anyway
             torch.cuda.synchronize(self.device)
         t2 = time.perf_counter()
         fetched = _fetch(out)
@@ -849,7 +855,9 @@ class CudaBackend(CandidateEvaluator):
         """Decode one alpha's fetched plan into per-wave decisions.  The
         host re-derives each decision's sorted predecessor order from the
         already decoded AFTs, which equals the kernel's on-device sort."""
+        # analysis: allow[host-sync] NumPy arrays the one fetch already brought to the host
         bound = crossings(fetched[0], fetched[3], fetched[4], alpha).tolist()
+        # analysis: allow[host-sync] NumPy arrays the one fetch already brought to the host
         win, est, eft, ca, cb, lst, lft, route = (x.tolist() for x in fetched)
         if commit:
             aft_l, proc_l = self.aft, self.proc_of

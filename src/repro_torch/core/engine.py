@@ -159,7 +159,8 @@ class CompiledInstance:
                  rank: Optional[np.ndarray] = None,
                  ldet: Optional[np.ndarray] = None,
                  faults: Optional[FaultSpec] = None,
-                 device: Union[str, "torch.device", None] = None) -> None:
+                 device: "Union[str, torch.device, None]" = None
+                 ) -> None:
         self.g, self.tg = g, tg
         # where the device backend keeps its tables and runs its kernels:
         # the card unless the caller asks for the CPU (plain versions)
@@ -280,7 +281,7 @@ class CompiledInstance:
                 raise ValueError("backend evaluator is bound to another "
                                  "CompiledInstance")
             return backend
-        name = resolve_backend_name(backend)
+        name = resolve_backend_name(backend, self.P, self.tg)
         be = self._backends.get(name)
         if be is None:
             be = backend_class(name)(self)

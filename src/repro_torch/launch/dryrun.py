@@ -19,19 +19,32 @@ Usage::
         --out experiments/dryrun_torch
 
 Each cell's JSON record: ``memory`` (bytes of each rank's shards of the
-params, optimizer state, decode cache and batch), ``cost.flops`` (the
+params, optimizer state, decode cache and batch, their sum
+``total_bytes``, the counterpart of XLA's argument size; ``peak_bytes``,
+the most bytes of local tensors a rank holds at once over the step, and
+``temp_bytes`` = peak less the arguments, the counterpart of XLA's
+``temp_size_in_bytes``), ``cost.flops`` (the
 FLOPs of the rank's local ops, ``torch.utils.flop_counter``), and
 ``collectives`` (per op kind: count, operand bytes, result bytes and
 the largest result, from ``CommDebugMode``), and ``lower_s``, the wall
 time of the step.
+
+The peak counts the step's allocations and frees as they happen, below
+DTensor: every new storage a rank's local op (a collective's result
+included) returns is live from then until its last tensor is freed, as
+a card's allocator would hold it.  Eager mode materializes what XLA
+fuses, so the temp is larger than XLA's on the same cell.
+:func:`step_memory` gives the same accounting for any step on any mesh
+(``chip_smoke.py`` holds it to the card's measured peak).
 """
 from __future__ import annotations
 
 import argparse
 import json
 import time
+import weakref
 from pathlib import Path
-from typing import Any, Callable, Dict, Optional, Sequence, Tuple
+from typing import Any, Callable, Dict, Optional, Sequence, Tuple, Union
 
 import numpy as np
 import torch
@@ -40,8 +53,11 @@ from torch.distributed.tensor import DTensor
 from torch.distributed.tensor.debug import CommDebugMode
 from torch._subclasses.fake_tensor import FakeTensor
 from torch.utils import flop_counter
+from torch.utils._python_dispatch import TorchDispatchMode
+from torch.utils._pytree import tree_leaves as _pytree_leaves
 
 from ..configs import ARCHS, SHAPES, cell_supported, get_arch, input_specs
+from ..configs.base import ShapeConfig
 from ..models import model as M
 from ..models.params import Tree, abstract_params, param_shardings, \
     tree_leaves, tree_map
@@ -104,21 +120,72 @@ class _RankFlops(flop_counter.FlopCounterMode):
         return self
 
 
+class _LiveBytes(TorchDispatchMode):
+    """The bytes of local tensors a rank holds, over a step: ``held``
+    (the step's arguments) from the start, then every new storage a local
+    op returns, until its last tensor is freed; ``peak`` is the most at
+    once.  DTensor ops are left to DTensor (``NotImplemented``), whose
+    local ops come back here; ops on the fake tensors DTensor runs to
+    learn a layout allocate nothing a rank holds."""
+
+    def __init__(self, held: Sequence[torch.Tensor]) -> None:
+        super().__init__()
+        # id of each live storage -> a weak reference whose callback
+        # frees its bytes when the storage dies
+        self._refs: Dict[int, weakref.ref] = {}
+        self.live = self.peak = 0
+        for t in held:
+            self._track(t)
+        self.start = self.live
+
+    def _track(self, t: torch.Tensor) -> None:
+        st = t.untyped_storage()
+        key = id(st)
+        if key in self._refs:                    # a view, or in place
+            return
+        n = st.nbytes()
+        self._refs[key] = weakref.ref(
+            st, lambda _, key=key, n=n: self._free(key, n))
+        self.live += n
+        if self.live > self.peak:
+            self.peak = self.live
+
+    def _free(self, key: int, n: int) -> None:
+        del self._refs[key]
+        self.live -= n
+
+    def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+        if any(issubclass(t, DTensor) for t in types):
+            return NotImplemented
+        out = func(*args, **(kwargs or {}))
+        if not any(issubclass(t, FakeTensor) for t in types):
+            for t in _pytree_leaves(out):
+                if isinstance(t, torch.Tensor) and \
+                        not isinstance(t, FakeTensor):
+                    self._track(t)
+        return out
+
+
 def _nbytes(ts: Sequence[Any]) -> int:
     return sum(t.numel() * t.element_size() for t in ts
                if isinstance(t, torch.Tensor))
 
 
-def _local_bytes(*parts: Any) -> int:
-    """Bytes of this rank's shards of trees of DTensors (dicts, an
-    ``OptState``) and single DTensors."""
+def _locals(*parts: Any) -> list:
+    """This rank's shards of trees of DTensors (dicts, an ``OptState``)
+    and single DTensors."""
     leaves = []
     for p in parts:
         if isinstance(p, OptState):
             leaves += tree_leaves(p.mu) + tree_leaves(p.nu) + [p.step]
         else:
             leaves += tree_leaves(p) if isinstance(p, dict) else [p]
-    return _nbytes([x.to_local() for x in leaves])
+    return [x.to_local() for x in leaves]
+
+
+def _local_bytes(*parts: Any) -> int:
+    """Bytes of this rank's shards of trees of DTensors."""
+    return _nbytes(_locals(*parts))
 
 
 def fake_group(world_size: int) -> None:
@@ -137,14 +204,16 @@ def fake_group(world_size: int) -> None:
                             world_size=world_size)
 
 
-def build_cell(arch: str, shape_name: str, mesh, *,
+def build_cell(arch: str, shape_name: Union[str, ShapeConfig], mesh, *,
                rules: Optional[RuleTable] = None, remat: bool = True,
                microbatch: int = 1) -> Tuple[Callable, tuple]:
     """Returns (fn, args) for one cell under the mesh: ``fn(*args)`` runs
     the cell's step (train, prefill forward or decode) under the
-    sharding context, ``args`` are DTensors over meta tensors."""
+    sharding context, ``args`` are DTensors over meta tensors.  The shape
+    is a name of ``SHAPES`` or a ``ShapeConfig`` of its own."""
     cfg = get_arch(arch)
-    shape = SHAPES[shape_name]
+    shape = shape_name if isinstance(shape_name, ShapeConfig) \
+        else SHAPES[shape_name]
     ok, why = cell_supported(cfg, shape)
     if not ok:
         raise ValueError(f"unsupported cell: {why}")
@@ -183,6 +252,34 @@ def build_cell(arch: str, shape_name: str, mesh, *,
     return fn, args
 
 
+def _memory(kind: str, args: tuple, peak: int) -> Dict[str, int]:
+    state = _local_bytes(args[1]) if kind != "prefill" else 0
+    memory = {"params_bytes": _local_bytes(args[0]),
+              "opt_state_bytes": state if kind == "train" else 0,
+              "cache_bytes": state if kind == "decode" else 0,
+              "batch_bytes": _local_bytes(*(
+                  args[1:] if kind == "prefill" else args[2:]))}
+    memory["total_bytes"] = sum(memory.values())
+    memory["peak_bytes"] = peak
+    memory["temp_bytes"] = peak - memory["total_bytes"]
+    return memory
+
+
+def step_memory(arch: str, shape: Union[str, ShapeConfig], mesh, *,
+                rules: Optional[RuleTable] = None, remat: bool = True,
+                microbatch: int = 1) -> Dict[str, int]:
+    """One rank's ``memory`` record (as :func:`run_cell`'s) for the step
+    of ``arch`` at ``shape`` on ``mesh``, any mesh over the running
+    (fake) process group, run over meta tensors."""
+    fn, args = build_cell(arch, shape, mesh, rules=rules, remat=remat,
+                          microbatch=microbatch)
+    kind = shape.kind if isinstance(shape, ShapeConfig) \
+        else SHAPES[shape].kind
+    with _LiveBytes(_locals(*args)) as live:
+        fn(*args)
+    return _memory(kind, args, live.peak)
+
+
 def run_cell(arch: str, shape_name: str, mesh_kind: str, *,
              rules: Optional[RuleTable] = None, remat: bool = True,
              microbatch: int = 1) -> Dict[str, Any]:
@@ -192,20 +289,14 @@ def run_cell(arch: str, shape_name: str, mesh_kind: str, *,
     t0 = time.perf_counter()
     fn, args = build_cell(arch, shape_name, mesh, rules=rules, remat=remat,
                           microbatch=microbatch)
-    with _Collectives() as comms, _RankFlops(display=False) as flops:
+    with _Collectives() as comms, _RankFlops(display=False) as flops, \
+            _LiveBytes(_locals(*args)) as live:
         fn(*args)
     lower_s = time.perf_counter() - t0
-    kind = SHAPES[shape_name].kind
-    state = _local_bytes(args[1]) if kind != "prefill" else 0
-    memory = {"params_bytes": _local_bytes(args[0]),
-              "opt_state_bytes": state if kind == "train" else 0,
-              "cache_bytes": state if kind == "decode" else 0,
-              "batch_bytes": _local_bytes(*(
-                  args[1:] if kind == "prefill" else args[2:]))}
-    memory["total_bytes"] = sum(memory.values())
     return {"arch": arch, "shape": shape_name, "mesh": mesh_kind,
             "chips": int(np.prod(mesh.shape)), "lower_s": lower_s,
-            "memory": memory, "cost": {"flops": flops.get_total_flops()},
+            "memory": _memory(SHAPES[shape_name].kind, args, live.peak),
+            "cost": {"flops": flops.get_total_flops()},
             "collectives": comms.bytes}
 
 

@@ -181,9 +181,15 @@ def _train(args: argparse.Namespace, mesh_shape: Dict[str, int]
     if log:
         log(f"{cfg.name}: {n / 1e6:.1f}M params on {args.device}, mesh "
             f"{mesh_shape}")
-    *_, infos = train_loop(step_fn, pipe, params, opt, start, args.steps,
-                           args.device, args.ckpt, args.ckpt_every, log,
-                           batch_shardings(cfg, shape))
+    # one step a call: the state this frame holds is each step's own
+    # input, never the first step's for the whole run
+    infos: List[dict] = []
+    for s in range(start, args.steps):
+        params, opt, got = train_loop(step_fn, pipe, params, opt, s, s + 1,
+                                      args.device, args.ckpt,
+                                      args.ckpt_every, log,
+                                      batch_shardings(cfg, shape))
+        infos += got
     if log:
         log("done.")
     return [i["loss"] for i in infos]

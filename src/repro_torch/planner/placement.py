@@ -12,7 +12,8 @@ Fig. 2 — a slower shared bus with real contention).
 and returns assignments + predicted step makespans.  Re-planning with
 measured rates is the framework's straggler-mitigation path: static
 re-scheduling, exactly the paper's answer for time-predictable systems.
-``backend=`` (``"cuda"`` or ``"scalar"``) and ``device=`` thread through
+``backend=`` (``"cuda"``, ``"scalar"``, ``"vector"`` or ``"auto"``) and
+``device=`` thread through
 to the scheduler session.
 
 Twin of :mod:`repro.planner.placement`: :func:`gpu_slice_topology` names

@@ -75,7 +75,8 @@ class DSMSEngine:
     ``device``, so a caller may drop its own tree once this returns.
     The scheduler runs on one 8-GPU node cut into ``n_slices`` slices
     (``gpu_slice_topology(n_slices, gpus_per_slice=2, nodes=1)``) with
-    ``backend`` (``"cuda"``, the default, or ``"scalar"``)."""
+    ``backend`` (``"cuda"``, the default, ``"scalar"``, ``"vector"`` or
+    ``"auto"``)."""
 
     def __init__(self, cfg: ModelConfig, params, batch_size: int,
                  max_seq: int, n_slices: int = 4,

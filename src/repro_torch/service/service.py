@@ -219,7 +219,8 @@ class SchedulerService:
                  max_tenants_per_worker: Optional[int] = None,
                  device: Union[str, torch.device, None] = None) -> None:
         self.device = torch.device("cuda" if device is None else device)
-        if resolve_backend_name(backend) == CudaBackend.name:
+        if resolve_backend_name(backend, topology.n_procs,
+                                topology) == CudaBackend.name:
             check_device(self.device)
         if workers < 1:
             raise ValueError(f"workers must be >= 1, got {workers}")

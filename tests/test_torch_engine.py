@@ -102,8 +102,8 @@ def test_unknown_backend_rejected():
     g, tg = port.paper_spg(), port.paper_topology()
     inst = port.CompiledInstance(g, tg, device="cpu")
     with pytest.raises(ValueError, match="unknown backend"):
-        inst.schedule(list(range(10)), backend="vector")
-    assert port.available_backends() == ["cuda", "scalar"]
+        inst.schedule(list(range(10)), backend="pallas")
+    assert port.available_backends() == ["cuda", "scalar", "vector"]
 
 
 @pytest.mark.parametrize("backend", ["scalar", "cuda"])

@@ -273,8 +273,10 @@ def test_dryrun_cell_runs(arch, shape, dryrun_records, bare_specs):
             want += n
     mem = rec["memory"]
     assert mem["params_bytes"] == want
-    assert mem["total_bytes"] == sum(v for k, v in mem.items()
-                                     if k != "total_bytes")
+    assert mem["total_bytes"] == sum(mem[k] for k in (
+        "params_bytes", "opt_state_bytes", "cache_bytes", "batch_bytes"))
+    assert mem["peak_bytes"] == mem["total_bytes"] + mem["temp_bytes"]
+    assert mem["temp_bytes"] > 0
     assert rec["cost"]["flops"] > 0 and rec["lower_s"] > 0
     if pcfg.SHAPES[shape].kind == "train":
         assert mem["opt_state_bytes"] == 2 * want + 4
