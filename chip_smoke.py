@@ -29,7 +29,20 @@ a service fleet to a scalar ``submit_many`` of the final state).  Phase
 ``backend_auto`` runs the paper submits and the exp9 fault script under
 ``backend="auto"`` (scalar at P 3, vector at P 8) and ``"vector"``
 beside a ``"cuda"`` session, every host plan bit for bit to the card's,
-and prints each backend's wall seconds.  It
+and prints each backend's wall seconds.  Phase ``f32_mode`` runs the
+device backend in float32 (``dtype=torch.float32``, the reference's TPU
+numerics): both kernels' float32 instantiations held bit for bit to
+their float32 plain versions at the paper instance and at exp7 (waves,
+the 301-alpha plan) and timed at exp7; the paper's submits and fault
+drill in float32 with float64's placements; the exp7 submit beside
+float64's, with how many of its 301 alphas decide as float64 does and,
+where one parts, the relative gap of the two float64 values that
+decided there, which must lie under the near-tie band
+``F32_NEAR_TIE_RTOL``; the exp9 fault script in float32 without
+violations at float32's slack (``FLOAT32_RTOL``); and the three examples
+of ``repro_torch.examples`` on the card, each in a process of its own.
+Every float64 path launches no float32 instantiation and every float32
+path only those.  It
 then drives the kernel entry points (``repro_torch.kernels.*.ops``) at
 published model widths — attention at qwen3-8b, qwen2-0.5b and
 hubert-xlarge width (each in bf16 and in f32), the selective scan at
@@ -145,7 +158,8 @@ import torch.nn.functional as F  # noqa: E402
 from torch.distributed.tensor import DTensor  # noqa: E402
 
 from repro_torch.core import (HSV_CC, HVLB_CC_B, HVLB_CC_IC,  # noqa: E402
-                              DEFAULT_BATCH_MAX, CompiledInstance,
+                              DEFAULT_BATCH_MAX, FLOAT32_RTOL,
+                              CompiledInstance,
                               CudaBackend, LinkDegraded, LinkDown,
                               ProcessorDown, Scheduler,
                               fully_switched_topology, hprv_b, paper_spg,
@@ -282,6 +296,17 @@ DRYRUN_PEAK_RATIO = (0.85, 1.15)
 # the backend names a session accepts besides the default: each runs
 # the paper submits and the exp9 fault script (phase backend_auto)
 BACKEND_NAMES = ("cuda", "auto", "vector")
+# phase f32_mode: the device backend in float32 (the reference's TPU
+# numerics); a plan that parts from the float64 plan must part at a
+# near-tie, two values within this relative gap (the reference's
+# F32_NEAR_TIE_RTOL)
+F32 = torch.float32
+# the examples of the port (python -m repro_torch.examples.<name>), each
+# run on the card at its default size in a process of its own
+EXAMPLES = (("quickstart", []),
+            ("dsms_serve", []),
+            ("train_lm", ["--ckpt", "build/example_ckpt"]))
+EXAMPLE_TIMEOUT_S = 300
 # the dry run at full size on meta tensors (fake groups of 256 and 512
 # ranks), each rank's bytes under the card's memory
 DRYRUN_CELLS = (("dbrx-132b", "decode_32k", "pod"),
@@ -409,10 +434,13 @@ def reset_all_launches() -> None:
 
 
 def all_launches() -> dict:
-    """Every kernel's launch count, and the attention launches split by
-    the kernel they went to (``flash_attention_kernel/wgmma_bf16``,
-    ``.../fma_f32``)."""
-    return {**K.LAUNCHES, **FA.LAUNCHES,
+    """Every kernel's launch count, the scheduling kernels' float32
+    launches (``sched_wave_kernel/f32``, ``sched_plan_kernel/f32``), and
+    the attention launches split by the kernel they went to
+    (``flash_attention_kernel/wgmma_bf16``, ``.../fma_f32``)."""
+    return {**K.LAUNCHES,
+            **{f"{k}/f32": n for k, n in K.F32_LAUNCHES.items()},
+            **FA.LAUNCHES,
             **{f"flash_attention_kernel/{k}": n
                for k, n in FA.VARIANT_LAUNCHES.items()}, **SS.LAUNCHES}
 
@@ -654,10 +682,64 @@ def decision_ops(slots: int, P: int, K: int, R: int, H: int) -> int:
     return slots * (P * (K * (3 * R * H + 1) + 5) + 4)
 
 
-def check_waves(g, tg, q, alpha, period, timed_wave=None):
+def sched_kernel_times(wargs, wout, wb, pargs, pouts) -> dict:
+    """Both scheduling kernels timed at exp7 in the real type of their
+    tables: the wave kernel on one wave's staged inputs ``wargs`` (its
+    outputs ``wout``, ``wb`` slots), the plan kernel on the 301-alpha
+    plan ``pargs`` (its outputs ``pouts``).  ms: CUDA events around
+    back-to-back wrapper calls (host-bound where the wrapper outlasts the
+    kernel); device_ms: the device's time, the host's enqueue hidden;
+    the plain version's ms; the bytes each must move (the float tables at
+    their element size) and the bound against the peak of the type."""
+    T = pargs["T"]
+    P, R, H = T.P, T.R, T.H
+    Kp = pargs["pred"].shape[2]
+    W, B = pargs["task"].shape
+    A = pargs["alphas"].shape[0]
+    peak = FP64_OPS_PER_S if T.dtype == torch.float64 else FP32_OPS_PER_S
+    k1_ms = event_ms(lambda: K.sched_wave(**wargs), 50)
+    k1_device_ms = device_ms(lambda: K.sched_wave(**wargs), 50)
+    k1_plain_ms = event_ms(lambda: K.wave_plain(**wargs), 3)
+    k2_ms = event_ms(lambda: K.sched_plan(**pargs), 5)
+    k2_device_ms = device_ms(lambda: K.sched_plan(**pargs), 5)
+    k2_plain_ms = event_ms(lambda: K.plan_plain(**pargs), 1)
+    ko, kst = wout
+    k1_bytes = table_bytes(T, wargs["task"], wargs["pedge"], wargs["psrc"]) \
+        + nbytes(tuple(wargs[k] for k in ("task", "real", "exitf", "paft",
+                                          "psrc", "pedge"))
+                 + wargs["state"] + ko.tensors() + kst)
+    pv = pargs["pvalid"] > 0
+    pred = pargs["pred"].long()
+    k2_bytes = table_bytes(
+        T, pargs["task"],
+        torch.where(pv, pargs["pedge"], T.E).expand(A, *pv.shape),
+        torch.where(pv, pouts[3][:, pred], P)) \
+        + nbytes(tuple(pargs[k] for k in ("task", "real", "exitf", "pred",
+                                          "pvalid", "pedge", "alphas", "aft0",
+                                          "proc0")) + pargs["state"]
+                 + pouts[0].tensors() + pouts[1] + pouts[2:])
+    k1_bound, k1_by = bound(k1_bytes, decision_ops(wb, P, Kp, R, H), peak)
+    k2_bound, k2_by = bound(k2_bytes, decision_ops(A * W * B, P, Kp, R, H),
+                            peak)
+    return {"dtype": str(T.dtype)[6:], "exp7_wave": {
+        "B": wb, "ms": k1_ms, "device_ms": k1_device_ms,
+        "us_per_decision": k1_ms * 1e3 / wb,
+        "device_us_per_decision": k1_device_ms * 1e3 / wb,
+        "plain_ms": k1_plain_ms, "bytes": k1_bytes, "bound_ms": k1_bound,
+        "bound_by": k1_by}, "exp7_plan": {
+        "A": A, "W": W, "B": B, "ms": k2_ms, "device_ms": k2_device_ms,
+        "us_per_decision": k2_ms * 1e3 / (A * W * B),
+        "us_per_decision_in_series": k2_ms * 1e3 / (W * B),
+        "plain_ms": k2_plain_ms, "bytes": k2_bytes,
+        "output_bytes": nbytes(pouts[0].tensors()), "bound_ms": k2_bound,
+        "bound_by": k2_by}}
+
+
+def check_waves(g, tg, q, alpha, period, timed_wave=None,
+                dtype=torch.float64):
     """K1 on every wave of the plan: kernel vs plain on the same staged
-    inputs, then the backend advances through the wave."""
-    inst = CompiledInstance(g, tg, rank=rank_matrix(g, tg))
+    inputs, then the backend advances through the wave (in ``dtype``)."""
+    inst = CompiledInstance(g, tg, rank=rank_matrix(g, tg), dtype=dtype)
     be = CudaBackend(inst, scan=False)
     be.start(alpha, period, True)
     preds = [list(g.pred[j]) for j in range(g.n)]
@@ -676,9 +758,10 @@ def check_waves(g, tg, q, alpha, period, timed_wave=None):
     return err, len(waves), timed
 
 
-def check_plan(g, tg, q, alphas, period):
-    """K2 on the whole plan under every alpha: kernel vs plain."""
-    inst = CompiledInstance(g, tg, rank=rank_matrix(g, tg))
+def check_plan(g, tg, q, alphas, period, dtype=torch.float64):
+    """K2 on the whole plan under every alpha: kernel vs plain (in
+    ``dtype``)."""
+    inst = CompiledInstance(g, tg, rank=rank_matrix(g, tg), dtype=dtype)
     be = CudaBackend(inst)
     be.start(alphas[0], period, True)
     preds = [list(g.pred[j]) for j in range(g.n)]
@@ -1044,6 +1127,259 @@ def phase_backends(drive, paths, gp, tgp) -> dict:
             "exp9_calls": [c[0] for c in fcalls], "backends": out,
             "bit_identical_to_cuda": True,
             "phase_s": time.perf_counter() - t_phase}
+
+
+def first_divergence(slots, out32, out64, alpha: float):
+    """Where the float32 plan of one alpha parts from the float64 plan
+    (decisions: the winner of each real slot and its routes), and the
+    gap there: the relative gap of the two winners' float64 selection
+    values (Def. 4.2, ``A + B * alpha``, ``A`` for an exit task), or of
+    the two routes' final LFTs when only a route differs.  ``slots``:
+    the plan's real, exit and predecessor-count arrays (W, B);
+    ``out32`` / ``out64``: the plan kernels' outputs of this alpha, on
+    the host.  None where the two agree."""
+    real, exitf, npred = slots
+    win32, win64 = out32["win"], out64["win"]
+    W, B = real.shape
+    for wv in range(W):
+        for b in range(B):
+            if not real[wv, b]:
+                continue
+            k = int(npred[wv, b])
+            p32, p64 = int(win32[wv, b]), int(win64[wv, b])
+            r32, r64 = out32["route"][wv, b, :k], out64["route"][wv, b, :k]
+            if p32 == p64 and np.array_equal(r32, r64):
+                continue
+            if p32 != p64:
+                ca, cb = out64["ca"][wv, b], out64["cb"][wv, b]
+                val = (lambda p: ca[p]) if exitf[wv, b] \
+                    else (lambda p: ca[p] + cb[p] * alpha)
+                v32, v64 = val(p32), val(p64)
+                return {"wave": wv, "slot": b, "kind": "processor",
+                        "f64_values": [v64, v32],
+                        "rel_gap": abs(v32 - v64) / abs(v64)}
+            kk = int(np.flatnonzero(r32 != r64)[0])
+            f32_, f64_ = (float(o["lft"][wv, b, kk, -1])
+                          for o in (out32, out64))
+            return {"wave": wv, "slot": b, "kind": "route", "pred": kk,
+                    "lfts": [f64_, f32_],
+                    "rel_gap": abs(f32_ - f64_) / abs(f64_)}
+    return None
+
+
+def plan_on_host(pouts) -> dict:
+    """The decisions of a plan kernel's outputs (every alpha), on the
+    host, floats in float64."""
+    out = pouts[0]
+    return {k: getattr(out, k).cpu().numpy().astype(
+        np.float64 if getattr(out, k).dtype.is_floating_point else np.int64)
+        for k in ("win", "ca", "cb", "lft", "route")}
+
+
+def run_examples(device: str = "cuda") -> dict:
+    """Each example of the port on ``device`` (the card), at its default
+    size, in a process of its own; the three run side by side.  Its wall
+    seconds, exit code and last line; any failure raises, after every
+    process has ended."""
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
+    shutil.rmtree(ROOT / "build" / "example_ckpt", ignore_errors=True)
+    procs = {}
+    try:
+        for name, argv in EXAMPLES:
+            procs[name] = (time.perf_counter(), subprocess.Popen(
+                [sys.executable, "-m", f"repro_torch.examples.{name}",
+                 "--device", device, *argv], cwd=ROOT, env=env,
+                stdout=subprocess.PIPE,
+                stderr=subprocess.PIPE, text=True))
+        rows = {}
+        for name, (t0, proc) in procs.items():
+            out, err = proc.communicate(timeout=EXAMPLE_TIMEOUT_S)
+            lines = out.strip().splitlines()
+            rows[name] = {"wall_s": time.perf_counter() - t0,
+                          "rc": proc.returncode,
+                          "last_line": lines[-1] if lines else "",
+                          "lines": len(lines)}
+            if proc.returncode != 0:
+                raise AssertionError(f"example {name} failed "
+                                     f"({proc.returncode}): {err[-2000:]}")
+            rows[name]["out"] = lines
+    finally:
+        for _, proc in procs.values():
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
+        shutil.rmtree(ROOT / "build" / "example_ckpt", ignore_errors=True)
+    qs = rows["quickstart"].pop("out")
+    assert qs[0].startswith("HSV_CC   makespan= 73.0"), qs[0]
+    assert f"cuda on {device} (float32, 301 alphas in one dispatch): " \
+        f"makespan=62.0 at alpha=1.06" in qs, qs
+    ds = rows["dsms_serve"].pop("out")
+    assert "done." in ds and ds[-1] == "service quickstart done.", ds[-4:]
+    tr = rows["train_lm"].pop("out")
+    losses = [float(ln.split("loss=")[1].split()[0]) for ln in tr
+              if "loss=" in ln]
+    assert tr[-1] == "done." and losses and all(
+        math.isfinite(x) for x in losses), tr[-4:]
+    rows["train_lm"]["losses_printed"] = losses
+    return rows
+
+
+def phase_f32(drive, paths, ctx) -> dict:
+    """The device backend's float32 mode (``dtype=torch.float32``, the
+    reference's TPU numerics, its near-tie policy).  Both kernels against
+    their plain versions in float32, bit for bit, at the paper instance
+    (waves at alpha 1.06, the 301-alpha plan) and at exp7 (waves and
+    the 301-alpha plan); both timed at exp7.  The paper's three submits
+    and its fault drill in float32, placements equal to float64's; the
+    exp7 submit beside float64, and how many of its 301 alphas decide as
+    in float64, each that parts doing so at a near-tie (a gap under
+    F32_NEAR_TIE_RTOL between the two float64 values that decided); the
+    exp9 fault script in float32 without violations."""
+    t_phase = time.perf_counter()
+    gp, tgp, qp, grid = ctx["gp"], ctx["tgp"], ctx["qp"], ctx["grid"]
+    g7, tg7, q7, period7 = ctx["g7"], ctx["tg7"], ctx["q7"], ctx["period7"]
+    # ---- the kernels against their plain versions
+    e_w_paper, _, _ = check_waves(gp, tgp, qp, 1.06, 150.0, dtype=F32)
+    e_p_paper, _, _, _ = check_plan(gp, tgp, qp, grid, 150.0, dtype=F32)
+    e_w7, _, (wargs, ko, kst, wb) = check_waves(
+        g7, tg7, q7, 1.0, period7, timed_wave=16, dtype=F32)
+    e_p7, pargs, pouts, _ = check_plan(g7, tg7, q7, grid, period7, dtype=F32)
+    assert pouts[0].ca.dtype == F32 and wargs["paft"].dtype == F32
+    times = sched_kernel_times(wargs, (ko, kst), wb, pargs, pouts)
+    # ---- the paper: three submits and the fault drill
+    sched = Scheduler(tgp, dtype=F32)
+    hsv, hv, ic = drive("f32_paper_submit", lambda: (
+        sched.submit(gp, HSV_CC()),
+        sched.submit(gp, HVLB_CC_B(**PAPER_POLICY)),
+        sched.submit(gp, HVLB_CC_IC(**PAPER_POLICY))))
+    paper = {}
+    for name, got, want in (("HSV_CC", hsv, ctx["hsv"]),
+                            ("HVLB_CC_B", hv, ctx["hv"]),
+                            ("HVLB_CC_IC", ic, ctx["ic"])):
+        assert got.backend == "cuda" and got.fallback is None
+        assert np.array_equal(got.schedule.proc, want.schedule.proc), name
+        assert schedule_violations(got.schedule) == [], name
+        paper[name] = {"makespan": got.makespan,
+                       "f64_makespan": want.makespan,
+                       "best_alpha": got.best_alpha,
+                       "f64_best_alpha": want.best_alpha}
+    holes = {f"n{t + 1}": h for t, h in ic.holes.items() if np.isfinite(h)}
+    assert holes == {"n1": 1.0, "n6": 4.0}, ic.holes
+    paper["HVLB_CC_IC"]["holes"] = holes
+    inst_p = CompiledInstance(gp, tgp, rank=rank_matrix(gp, tgp), dtype=F32)
+    wave_s = drive("f32_paper_per_wave", lambda: inst_p.schedule(
+        qp, 1.06, period=150.0, backend=CudaBackend(inst_p, scan=False)))
+    for f in ("proc", "start", "finish"):
+        assert np.array_equal(getattr(wave_s, f), getattr(hv.schedule, f))
+    drill_pol = HVLB_CC_IC(alpha_max=2.0, alpha_step=0.1)
+    d64 = Scheduler(tgp, policy=drill_pol)
+    d64.submit(gp)
+    f64_failed = d64.mark_failed(proc=2)
+    drill = Scheduler(tgp, policy=drill_pol, dtype=F32)
+    healthy, failed = drive("f32_paper_faults", lambda: (
+        drill.submit(gp), drill.mark_failed(proc=2)))
+    assert (healthy.makespan, failed.makespan) == (65.0, 89.0), \
+        (healthy.makespan, failed.makespan)
+    assert schedule_violations(failed.schedule, drill.faults) == []
+    assert np.array_equal(failed.schedule.proc, f64_failed.schedule.proc)
+    # ---- exp7: the submit beside float64's, then every alpha's decisions
+    sched7 = Scheduler(tg7, dtype=F32)
+    t0 = time.perf_counter()
+    plan7 = drive("f32_exp7_submit", lambda: sched7.submit(g7, EXP7_POLICY))
+    submit_s = time.perf_counter() - t0
+    be7 = sched7._sessions[id(g7)].inst.backend_instance("cuda")
+    assert be7.dtype == F32 and plan7.backend == "cuda"
+    # a float32 plan's durations hold to float32 rounding: checked at its
+    # slack, FLOAT32_RTOL; every other invariant holds exactly
+    assert schedule_violations(plan7.schedule, rtol=FLOAT32_RTOL) == []
+    inst7 = CompiledInstance(g7, tg7, rank=rank_matrix(g7, tg7), dtype=F32)
+    q7s = sched7._sessions[id(g7)].queue_for(tg7, EXP7_POLICY)
+    wave7 = drive("f32_exp7_per_wave", lambda: inst7.schedule(
+        q7s, plan7.best_alpha, period=plan7.period,
+        backend=CudaBackend(inst7, scan=False)))
+    for f in ("proc", "start", "finish"):
+        assert np.array_equal(getattr(wave7, f), getattr(plan7.schedule, f))
+    slots = (pargs["real"].cpu().numpy() > 0,
+             pargs["exitf"].cpu().numpy() > 0,
+             pargs["pvalid"].cpu().numpy().sum(-1))
+    h32, h64 = plan_on_host(pouts), plan_on_host(ctx["pouts64"])
+    identical, parted = 0, []
+    for a, alpha in enumerate(grid):
+        d = first_divergence(slots, {k: v[a] for k, v in h32.items()},
+                             {k: v[a] for k, v in h64.items()}, alpha)
+        if d is None:
+            identical += 1
+            continue
+        d["alpha"] = alpha
+        parted.append(d)
+        if not d["rel_gap"] < K.F32_NEAR_TIE_RTOL:
+            raise AssertionError(f"exp7 float32 plan parts from float64 "
+                                 f"beyond the near-tie band: {d}")
+    f64_7 = ctx["plan7"]
+    exp7 = {"P": tg7.n_procs, "n": g7.n, "alphas": len(grid),
+            "submit_s": submit_s, "f64_submit_s": ctx["submit7_s"],
+            "timing_s": dict(be7.last_timing),
+            "f64_timing_s": ctx["timing7"],
+            "plan_kernel_device_ms": times["exp7_plan"]["device_ms"],
+            "makespan": plan7.makespan, "f64_makespan": f64_7.makespan,
+            "best_alpha": plan7.best_alpha,
+            "f64_best_alpha": f64_7.best_alpha,
+            "alphas_decision_identical": identical,
+            "alphas_parted": len(parted),
+            "max_rel_gap_where_parted": max(
+                (d["rel_gap"] for d in parted), default=None),
+            "parted": parted[:20], "near_tie_rtol": K.F32_NEAR_TIE_RTOL}
+    # ---- exp9: the fault script in float32
+    g9, tg9 = exp9_instance()
+    _, fcalls = exp9_fault_calls(g9, tg9)
+    s9 = Scheduler(tg9, policy=EXP9_POLICY, dtype=F32)
+    t0 = time.perf_counter()
+
+    def fault_path():
+        out = []
+        for call in fcalls:
+            (res,) = timed_calls(s9, [call])
+            out.append((res, s9.faults))
+        return out
+
+    rows9 = {}
+    for (name, got, wall, launches, timing), spec in drive(
+            "f32_exp9_faults", fault_path):
+        assert got.backend == "cuda" and got.fallback is None
+        assert schedule_violations(got.schedule, spec,
+                                   rtol=FLOAT32_RTOL) == [], name
+        rows9[name] = {"wall_s": wall, "makespan": got.makespan,
+                       "f64_makespan":
+                           ctx["exp9"]["calls"][name]["makespan"],
+                       "sched_plan_kernel": launches,
+                       "invalidated_by_fault":
+                           got.replay.invalidated_by_fault}
+    exp9_s = time.perf_counter() - t0
+    phase_s = time.perf_counter() - t_phase
+    # ---- the examples, on the card
+    examples = run_examples(ctx.get("device", "cuda"))
+    return {"phase": "f32_mode", "dtype": "float32",
+            "near_tie_rtol": K.F32_NEAR_TIE_RTOL,
+            "kernels_vs_plain": {
+                "exact": True,
+                "paper": {"wave_max_abs_err": e_w_paper,
+                          "plan_max_abs_err": e_p_paper},
+                "exp7": {"wave_max_abs_err": e_w7,
+                         "plan_max_abs_err": e_p7}},
+            "kernel_times": times,
+            "paper": paper, "paper_drill": {
+                "healthy": healthy.makespan, "proc2_down": failed.makespan,
+                "invalidated_by_fault": failed.replay.invalidated_by_fault},
+            "exp7": exp7, "exp9": {"calls": rows9, "script_s": exp9_s},
+            "phase_s": phase_s, "examples": examples,
+            "launches": {k: paths[k] for k in F32_PATHS}}
+
+
+# the paths of phase f32_mode: each launches the float32 kernels only
+F32_PLAN_PATHS = ("f32_paper_submit", "f32_paper_faults", "f32_exp7_submit",
+                  "f32_exp9_faults")
+F32_WAVE_PATHS = ("f32_paper_per_wave", "f32_exp7_per_wave")
+F32_PATHS = F32_PLAN_PATHS + F32_WAVE_PATHS
 
 
 def phase_service(drive, paths) -> dict:
@@ -2351,11 +2687,14 @@ def main() -> int:
     scan_ptxas = ptxas_summary(built[2].log)
     assert len(scan_ptxas) == 12 and all(
         spill == 0 for _, spill in scan_ptxas.values()), scan_ptxas
-    # every instantiation of the scheduling kernels (one per hop count)
+    # every instantiation of the scheduling kernels (two kernels, four
+    # walks each, in double and in float: mangled ...IdLi... / ...IfLi...)
     # spills nothing
     sched_ptxas = ptxas_summary(built[0].log)
-    assert all(any(k in name for name in sched_ptxas)
-               for k in ("sched_plan_kernel", "sched_wave_kernel")) and all(
+    assert len(sched_ptxas) == 16 and all(
+        sum(k in name and f"I{t}Li" in name for name in sched_ptxas) == 4
+        for k in ("sched_plan_kernel", "sched_wave_kernel")
+        for t in "df") and all(
         spill == 0 for _, spill in sched_ptxas.values()), sched_ptxas
     emit({"phase": "device", "name": torch.cuda.get_device_name(0),
           "torch": torch.__version__, "cuda": torch.version.cuda,
@@ -2385,47 +2724,16 @@ def main() -> int:
           "exp7": {"waves": n_waves7, "alphas": len(grid),
                    "wave_max_abs_err": e_w7, "plan_max_abs_err": e_p7}})
 
-    T = pargs["T"]
-    P, R, H = T.P, T.R, T.H
-    Kp = pargs["pred"].shape[2]
     W, B = pargs["task"].shape
     A = len(grid)
-    # ms: CUDA events around back-to-back wrapper calls (host-bound where
-    # the wrapper outlasts the kernel); device_ms: the device's time, the
-    # host's enqueue hidden
-    k1_ms = event_ms(lambda: K.sched_wave(**wargs), 50)
-    k1_device_ms = device_ms(lambda: K.sched_wave(**wargs), 50)
-    k1_plain_ms = event_ms(lambda: K.wave_plain(**wargs), 3)
-    k2_ms = event_ms(lambda: K.sched_plan(**pargs), 5)
-    k2_device_ms = device_ms(lambda: K.sched_plan(**pargs), 5)
-    k2_plain_ms = event_ms(lambda: K.plan_plain(**pargs), 1)
-    k1_bytes = table_bytes(T, wargs["task"], wargs["pedge"], wargs["psrc"]) \
-        + nbytes(tuple(wargs[k] for k in ("task", "real", "exitf", "paft",
-                                          "psrc", "pedge"))
-                 + wargs["state"] + ko.tensors() + kst)
-    pv = pargs["pvalid"] > 0
-    pred = pargs["pred"].long()
-    k2_bytes = table_bytes(
-        T, pargs["task"],
-        torch.where(pv, pargs["pedge"], T.E).expand(A, *pv.shape),
-        torch.where(pv, pouts[3][:, pred], P)) \
-        + nbytes(tuple(pargs[k] for k in ("task", "real", "exitf", "pred",
-                                          "pvalid", "pedge", "alphas", "aft0",
-                                          "proc0")) + pargs["state"]
-                 + pouts[0].tensors() + pouts[1] + pouts[2:])
-    k1_bound, k1_by = bound(k1_bytes, decision_ops(wb, P, Kp, R, H))
-    k2_bound, k2_by = bound(k2_bytes, decision_ops(A * W * B, P, Kp, R, H))
-    emit({"phase": "kernel_times", "card": smi, "exp7_wave": {
-        "B": wb, "ms": k1_ms, "device_ms": k1_device_ms,
-        "us_per_decision": k1_ms * 1e3 / wb,
-        "device_us_per_decision": k1_device_ms * 1e3 / wb,
-        "plain_ms": k1_plain_ms,
-        "bytes": k1_bytes, "bound_ms": k1_bound}, "exp7_plan": {
-        "A": A, "W": W, "B": B, "ms": k2_ms, "device_ms": k2_device_ms,
-        "us_per_decision": k2_ms * 1e3 / (A * W * B),
-        "us_per_decision_in_series": k2_ms * 1e3 / (W * B),
-        "plain_ms": k2_plain_ms, "bytes": k2_bytes,
-        "output_bytes": nbytes(pouts[0].tensors()), "bound_ms": k2_bound}})
+    times = sched_kernel_times(wargs, (ko, kst), wb, pargs, pouts)
+    k1_ms, k1_plain_ms, k1_bound, k1_by = (
+        times["exp7_wave"][k] for k in ("ms", "plain_ms", "bound_ms",
+                                         "bound_by"))
+    k2_ms, k2_plain_ms, k2_bound, k2_by = (
+        times["exp7_plan"][k] for k in ("ms", "plain_ms", "bound_ms",
+                                         "bound_by"))
+    emit({"phase": "kernel_times", "card": smi, **times})
 
     # ---- 3. main path, paper instance.  Every path is driven with the
     # launch counts set to 0 just before it and read just after it.
@@ -2530,8 +2838,14 @@ def main() -> int:
 
     upd = phase_update(drive, paths, g7, tg7, q7s)
     emit(upd)
-    emit(phase_faults(drive, paths, gp, tgp))
+    faults = phase_faults(drive, paths, gp, tgp)
+    emit(faults)
     emit(phase_backends(drive, paths, gp, tgp))
+    f32 = phase_f32(drive, paths, dict(
+        gp=gp, tgp=tgp, qp=qp, grid=grid, g7=g7, tg7=tg7, q7=q7,
+        period7=period7, hsv=hsv, hv=hv, ic=ic, pouts64=pouts, plan7=plan7,
+        submit7_s=submit_s, timing7=timing, exp9=faults["exp9"]))
+    emit(f32)
     emit(phase_service(drive, paths))
 
     # ---- 5. the attention entry point at published widths: all cases
@@ -2657,10 +2971,14 @@ def main() -> int:
                   "serve_plan", "serve_retime", "serve_fault") + tuple(
                       f"serve_{a}_{k}" for a in FAMILY_ARCHS
                       for k in ("plan", "retime", "fault"))
-    for name in plan_paths:
+    for name in plan_paths + F32_PLAN_PATHS:
         assert paths[name]["sched_plan_kernel"] > 0, (name, paths[name])
         assert paths[name]["sched_wave_kernel"] == 0, (name, paths[name])
     assert paths["exp7_submit"]["sched_plan_kernel"] == 1, paths
+    assert paths["f32_exp7_submit"]["sched_plan_kernel/f32"] == 1, paths
+    for name in F32_WAVE_PATHS:
+        assert paths[name]["sched_plan_kernel"] == 0, (name, paths[name])
+        assert paths[name]["sched_wave_kernel/f32"] > 0, (name, paths)
     for name, waves in (("paper_per_wave", None), ("exp7_per_wave", W)):
         assert paths[name]["sched_plan_kernel"] == 0, (name, paths[name])
         assert paths[name]["sched_wave_kernel"] == (
@@ -2673,7 +2991,11 @@ def main() -> int:
                                  len(cases) - n_bf16},
                "scan": {"selective_scan_kernel": len(scases)}}.get(name)
         if own is None:
+            # a float64 path launches no float32 instantiation, and a
+            # float32 path only those
             own = {k: counts[k] for k in K.LAUNCHES}
+            if name in F32_PATHS:
+                own.update({f"{k}/f32": counts[k] for k in K.LAUNCHES})
         assert counts == {**dict.fromkeys(counts, 0), **own}, (name, counts)
     src = "src/repro_torch/core/backends/csrc/sched_kernels.cu"
     a0, s0 = next(iter(attn)), next(iter(scan))
@@ -2708,6 +3030,30 @@ def main() -> int:
                                         "resumed_vs_plain"))),
          "ms": k2_ms,
          "plain_ms": k2_plain_ms, "bound_ms": k2_bound, "bound_by": k2_by,
+         "library_ms": None},
+        {"name": "sched_wave_kernel/f32", "route": "cuda", "source": src,
+         "replaces": "src/repro/core/backends/pallas.py:199",
+         "path": "CompiledInstance.schedule, CudaBackend(scan=False), "
+                 "dtype=torch.float32, exp7",
+         "launches": paths["f32_exp7_per_wave"]["sched_wave_kernel/f32"],
+         "max_abs_err": max(f32["kernels_vs_plain"][c]["wave_max_abs_err"]
+                            for c in ("paper", "exp7")),
+         **{k: f32["kernel_times"]["exp7_wave"][k]
+            for k in ("ms", "plain_ms", "bound_ms", "bound_by")},
+         "library_ms": None},
+        {"name": "sched_plan_kernel/f32", "route": "cuda", "source": src,
+         "replaces": "src/repro/core/backends/pallas.py:396",
+         "path": "Scheduler.submit, dtype=torch.float32, paper and exp7; "
+                 "mark_failed, paper; mark_failed, degrade and restore, "
+                 "exp9",
+         "launches": sum(paths[k]["sched_plan_kernel/f32"]
+                         for k in F32_PLAN_PATHS),
+         "launches_by_path": {k: paths[k]["sched_plan_kernel/f32"]
+                              for k in F32_PLAN_PATHS},
+         "max_abs_err": max(f32["kernels_vs_plain"][c]["plan_max_abs_err"]
+                            for c in ("paper", "exp7")),
+         **{k: f32["kernel_times"]["exp7_plan"][k]
+            for k in ("ms", "plain_ms", "bound_ms", "bound_by")},
          "library_ms": None},
         {"name": "flash_attention_kernel", "route": "cuda",
          "source": "src/repro_torch/kernels/csrc/flash_attention.cu",

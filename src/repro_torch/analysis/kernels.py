@@ -25,14 +25,16 @@ is the reference's.  The rules:
                     (unset means ``c_int``)
   cuda-rounding     in every source of a library built with
                     ``--fmad=false``, a ``+ - * /`` (or ``+= -= *= /=``)
-                    with a ``double`` operand outside the
+                    with a floating-point operand outside the
                     ``__dadd_rn``/``__dsub_rn``/``__dmul_rn``/``__ddiv_rn``
-                    intrinsics, and any ``fma``/``__fma_rn``; integer
-                    index arithmetic is not (the pass tracks ``double``
-                    declarations per scope, struct fields and functions
-                    returning ``double``)
+                    intrinsics (``__fadd_rn``/``__fsub_rn``/``__fmul_rn``/
+                    ``__fdiv_rn`` in float), and any ``fma``/``__fma_rn``;
+                    integer index arithmetic is not (the pass tracks
+                    declarations of ``double``, ``float`` and of every
+                    template type parameter, the kernels' real type, per
+                    scope, struct fields and functions returning one)
   cuda-fmad-flag    a library whose source rounds with those intrinsics
-                    (the bit-exact f64 contract) is built with
+                    (the bit-exact contract) is built with
                     ``--fmad=false``, and a library whose source does not
                     is built without it
   kernel-rtol-site  ``F32_NEAR_TIE_RTOL`` may be defined, never consumed
@@ -55,7 +57,9 @@ with no counterpart here, and why:
                     no such tile, and the port has no ``pad_dim``
   kernel-dtype      dtype from the refs, never literals, so the f32/f64
                     switch is one site; the port's scheduling kernels are
-                    f64 only (the f32 near-tie mode is not ported)
+                    templates over their real type, instantiated in both,
+                    and the binding picks the entry point by the tables'
+                    dtype (``cuda-rounding`` covers both instantiations)
   kernel-arity      kernel refs equal to ``in_specs`` + ``out_specs``;
                     its counterpart is ``ctypes-arity``
   scan-carry-race, scan-carry-uncommitted
@@ -100,14 +104,20 @@ C_KINDS: Dict[str, Tuple[str, ...]] = {
     "void": (),
 }
 _CTYPES = frozenset(n for names in C_KINDS.values() for n in names)
-#: intrinsics that round one f64 operation explicitly
-ROUNDED = re.compile(r"__d(add|sub|mul|div)_r[nzud]$")
+#: intrinsics that round one f64 or f32 operation explicitly
+ROUNDED = re.compile(r"__[df](add|sub|mul|div)_r[nzud]$")
 FUSED = re.compile(r"(fma|fmaf|__fmaf?_r[nzud])$")
-#: functions the pass knows return double besides those the source
-#: declares
+#: the floating-point types; a source's template type parameters join
+#: them (the kernels' real type)
+REAL_TYPES = frozenset({"double", "float"})
+#: functions the pass knows return a floating-point value besides those
+#: the source declares
 DOUBLE_FUNCS = frozenset({"sqrt", "exp", "log", "fabs", "fmax", "fmin",
-                          "pow", "floor", "ceil", "rint", "__shfl_sync",
-                          "__shfl_xor_sync", "__shfl_down_sync"})
+                          "pow", "floor", "ceil", "rint", "sqrtf", "expf",
+                          "logf", "fabsf", "fmaxf", "fminf", "powf",
+                          "floorf", "ceilf", "rintf", "__expf", "__logf",
+                          "__shfl_sync", "__shfl_xor_sync",
+                          "__shfl_down_sync"})
 _QUALIFIERS = frozenset({"const", "volatile", "__restrict__", "restrict",
                          "static", "__shared__", "__device__",
                          "__constant__", "register"})
@@ -292,14 +302,16 @@ def _functions_in(toks, out: Dict[str, CFunc]) -> None:
 
 # ======================================================= cuda-rounding
 class _Scopes:
-    """``double`` declarations of a C++ source, by brace scope: a name
-    is a ``scalar``, a ``ptr`` or an ``array`` of double."""
+    """Floating-point declarations of a C++ source, by brace scope: a
+    name is a ``scalar``, a ``ptr`` or an ``array`` of a real type
+    (``double``, ``float`` or a template type parameter)."""
 
-    def __init__(self) -> None:
+    def __init__(self, reals: Set[str]) -> None:
         self.stack: List[Dict[str, str]] = [{}]
         self.pending: Dict[str, str] = {}
         self.fields: Dict[str, Set[str]] = {}
         self.funcs: Set[str] = set(DOUBLE_FUNCS)
+        self.reals = reals
 
     def kind(self, name: str) -> Optional[str]:
         for scope in reversed(self.stack):
@@ -308,9 +320,37 @@ class _Scopes:
         return self.pending.get(name)
 
 
+def _template_types(toks) -> Set[str]:
+    """The names of every template type parameter of a source
+    (``template <typename F, ...>``): each may be the kernels' real
+    type, so the pass treats each as one."""
+    out: Set[str] = set()
+    for i, (_, t, _) in enumerate(toks):
+        if t != "template" or i + 1 >= len(toks) or toks[i + 1][1] != "<":
+            continue
+        depth, k = 0, i + 1
+        while k < len(toks):
+            w = toks[k][1]
+            if w == "<":
+                depth += 1
+            elif w == ">":
+                depth -= 1
+                if depth == 0:
+                    break
+            elif w == ">>":
+                depth -= 2
+                if depth <= 0:
+                    break
+            elif w in ("typename", "class") and k + 1 < len(toks) \
+                    and toks[k + 1][0] == "id":
+                out.add(toks[k + 1][1])
+            k += 1
+    return out
+
+
 def _declare(toks, i: int, sc: _Scopes, paren: int,
              in_struct: bool) -> None:
-    """Declarators after the ``double`` at ``i``."""
+    """Declarators after the real type at ``i``."""
     j = i + 1
     while True:
         stars = 0
@@ -322,7 +362,7 @@ def _declare(toks, i: int, sc: _Scopes, paren: int,
         name = toks[j][1]
         nxt = toks[j + 1][1] if j + 1 < len(toks) else ""
         if nxt == "(" and stars == 0 and paren == 0:
-            sc.funcs.add(name)                   # a function of double
+            sc.funcs.add(name)                   # a function of a real
             return
         kind = "ptr" if stars else ("array" if nxt == "[" else "scalar")
         (sc.pending if paren else sc.stack[-1])[name] = kind
@@ -349,9 +389,9 @@ def _declare(toks, i: int, sc: _Scopes, paren: int,
 
 
 def _is_double_literal(tok: str) -> bool:
+    """A floating-point literal, double (``1.0``) or float (``1.0f``)."""
     return bool(re.match(r"(\d+\.\d*|\.\d+|\d+[eE])", tok)) \
-        and not tok.lower().endswith("f") and not tok.lower().startswith(
-            "0x")
+        and not tok.lower().startswith("0x")
 
 
 def _member_chain_end(toks, i: int) -> bool:
@@ -386,7 +426,8 @@ def _left_double(toks, i: int, sc: _Scopes) -> bool:
         o = _match(toks, j, -1)
         if o > 0 and toks[o - 1][0] == "id" and \
                 toks[o - 1][1] not in _KEYWORDS:
-            return toks[o - 1][1] in sc.funcs
+            # a call of a real function, or a functional cast F(...)
+            return toks[o - 1][1] in sc.funcs or toks[o - 1][1] in sc.reals
         return _group_double(toks, o + 1, j, sc)
     if kind == "num":
         return _is_double_literal(t)
@@ -406,9 +447,9 @@ def _right_double(toks, i: int, sc: _Scopes) -> bool:
     if t == "(":
         c = _match(toks, j, 1)
         inner = [x[1] for x in toks[j + 1:c]]
-        if inner and all(w in _QUALIFIERS or w == "double" for w in inner) \
-                and "double" in inner:
-            return True                          # a cast to double
+        if inner and all(w in _QUALIFIERS or w in sc.reals for w in inner) \
+                and any(w in sc.reals for w in inner):
+            return True                          # a cast to a real type
         return _group_double(toks, j + 1, c, sc)
     if kind == "num":
         return _is_double_literal(t)
@@ -420,7 +461,8 @@ def _right_double(toks, i: int, sc: _Scopes) -> bool:
         j += 2
     nxt = toks[j + 1][1] if j + 1 < len(toks) else ""
     if nxt == "(":
-        return toks[j][1] in sc.funcs
+        # a call of a real function, or a functional cast F(...)
+        return toks[j][1] in sc.funcs or toks[j][1] in sc.reals
     return _name_is_double(toks, j, sc, nxt == "[")
 
 
@@ -433,7 +475,7 @@ def _group_double(toks, a: int, b: int, sc: _Scopes) -> bool:
         if t in ("(", "["):
             c = _match(toks, k, 1)
             if t == "(" and k > a and toks[k - 1][0] == "id":
-                if toks[k - 1][1] in sc.funcs:
+                if toks[k - 1][1] in sc.funcs or toks[k - 1][1] in sc.reals:
                     return True
             elif t == "(" and _group_double(toks, k + 1, c, sc):
                 return True
@@ -475,7 +517,7 @@ def _is_binary(toks, i: int) -> bool:
 def rounding_findings(path: str, text: str) -> List[Finding]:
     """``cuda-rounding`` over one CUDA source."""
     toks = _tokens(text)
-    sc = _Scopes()
+    sc = _Scopes(set(REAL_TYPES) | _template_types(toks))
     out: List[Finding] = []
     paren = 0
     struct_next = False
@@ -500,7 +542,7 @@ def rounding_findings(path: str, text: str) -> List[Finding]:
         elif t == ";" and paren == 0:
             sc.pending = {}
             struct_next = False
-        elif t == "double":
+        elif t in sc.reals:
             _declare(toks, i, sc, paren, bool(struct_depth and
                                               struct_depth[-1]))
         elif kind == "id" and FUSED.match(t) and i + 1 < len(toks) \
@@ -508,18 +550,18 @@ def rounding_findings(path: str, text: str) -> List[Finding]:
             out.append(Finding(
                 "cuda-rounding", path, line,
                 f"{t}() fuses a multiply and an add — the reference rounds "
-                f"each: use __dmul_rn then __dadd_rn"))
+                f"each: use __dmul_rn then __dadd_rn (__fmul_rn then "
+                f"__fadd_rn in float)"))
         elif t in ("+", "-", "*", "/", "+=", "-=", "*=", "/="):
             if len(t) == 1 and not _is_binary(toks, i):
                 continue
             if _left_double(toks, i, sc) or _right_double(toks, i, sc):
-                op = t[0]
-                name = {"+": "__dadd_rn", "-": "__dsub_rn",
-                        "*": "__dmul_rn", "/": "__ddiv_rn"}[op]
+                op = {"+": "add", "-": "sub", "*": "mul", "/": "div"}[t[0]]
                 out.append(Finding(
                     "cuda-rounding", path, line,
-                    f"bare double '{t}' in a library built with "
-                    f"--fmad=false — write the rounding step as {name}"))
+                    f"bare floating-point '{t}' in a library built with "
+                    f"--fmad=false — write the rounding step as "
+                    f"__d{op}_rn (double) or __f{op}_rn (float)"))
     return out
 
 
@@ -740,14 +782,14 @@ def _binding_findings(sf: SourceFile, index: ProjectIndex,
         if rounded and not fmad_off:
             out.append(Finding(
                 "cuda-fmad-flag", path, b.call.lineno,
-                "the library's source rounds with __d*_rn (bit-exact f64) "
-                "but it is built without --fmad=false"))
+                "the library's source rounds with __d*_rn / __f*_rn (bit-"
+                "exact) but it is built without --fmad=false"))
         elif fmad_off and not rounded:
             out.append(Finding(
                 "cuda-fmad-flag", path, b.call.lineno,
                 "--fmad=false on a library whose source is not written to "
-                "the bit-exact f64 contract (no __d*_rn) — it only slows "
-                "its float kernels"))
+                "the bit-exact contract (no __d*_rn / __f*_rn) — it only "
+                "slows its float kernels"))
     # the bindings
     for scope, env in _scopes(sf):
         for node in ast.walk(scope):

@@ -29,8 +29,8 @@ from .scheduler import (MessagePlacement, Schedule, SchedulingFailure,
                         list_schedule)
 from .tgff import random_spg
 from .topology import Topology, fully_switched_topology, paper_topology
-from .validate import (ScheduleValidationError, check_graph, check_topology,
-                       schedule_violations, validate_schedule)
+from .validate import (FLOAT32_RTOL, ScheduleValidationError, check_graph,
+                       check_topology, schedule_violations, validate_schedule)
 
 __all__ = [
     # session API (the supported public surface)
@@ -48,6 +48,7 @@ __all__ = [
     "ComputeSpike", "InfeasibleScheduleError", "WaveTimeoutError",
     "apply_to_topology", "apply_to_graph",
     "schedule_violations", "validate_schedule", "ScheduleValidationError",
+    "FLOAT32_RTOL",
     "SPG", "paper_spg", "PAPER_EDGES", "PAPER_COMP", "PAPER_COMP_EXP5",
     "Topology", "paper_topology", "fully_switched_topology",
     "rank_matrix", "hrank", "hprv_a", "hprv_b", "ldet_cc", "priority_queue",

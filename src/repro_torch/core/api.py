@@ -55,7 +55,7 @@ import numpy as np
 import torch
 
 from .backends import DEFAULT_BACKEND, CudaBackend, resolve_backend_name
-from .backends.cuda import check_device
+from .backends.cuda import check_device, check_dtype
 from .deprecation import warn_once
 from .engine import (DEFAULT_BATCH_MAX, CompiledInstance, DecisionTrace,
                      validate_batch)
@@ -272,12 +272,13 @@ class _GraphSession:
     """
 
     __slots__ = ("g", "handles", "rank", "ldet", "queues", "periods",
-                 "traces", "plans", "_tg", "_compiled", "_device", "_inst",
-                 "_faults")
+                 "traces", "plans", "_tg", "_compiled", "_device", "_dtype",
+                 "_inst", "_faults")
 
     def __init__(self, g: SPG, tg: Topology, compiled: bool,
                  device: torch.device,
                  faults: Optional[FaultSpec] = None,
+                 dtype: torch.dtype = torch.float64,
                  rank: Optional[np.ndarray] = None,
                  ldet: Optional[np.ndarray] = None) -> None:
         self.g = g
@@ -285,6 +286,7 @@ class _GraphSession:
         self._tg = tg
         self._compiled = compiled
         self._device = device
+        self._dtype = dtype
         # active resource faults at session-build time; the compiled
         # instance embeds their masking, so the session cache is cleared
         # whenever the spec changes (Scheduler._fault_event).  Rank/LDET
@@ -309,7 +311,8 @@ class _GraphSession:
             self._inst = CompiledInstance(self.g, self._tg, rank=self.rank,
                                           ldet=self.ldet,
                                           faults=self._faults,
-                                          device=self._device)
+                                          device=self._device,
+                                          dtype=self._dtype)
         return self._inst
 
     def queue_for(self, tg: Topology, policy: Policy) -> List[int]:
@@ -417,6 +420,13 @@ class Scheduler:
     ``submit_many``, ``update`` and the fault methods accept per-call
     ``backend``/``batch`` overrides.
 
+    ``dtype`` is the cuda backend's real type for the whole session:
+    ``torch.float64`` (the default, bit-identical to scalar) or
+    ``torch.float32``, the reference's TPU numerics, decision-identical
+    to scalar except inside the near-tie band
+    (:data:`~.backends.cuda.F32_NEAR_TIE_RTOL`).  The host backends
+    ignore it; traces stay portable between the two.
+
     ``faults`` seeds the active resource faults (a restarted service
     resumes a degraded fleet); ``wave_timeout`` (seconds, or the
     ``REPRO_SCHED_WAVE_TIMEOUT`` environment variable) is the engine
@@ -430,7 +440,8 @@ class Scheduler:
                  batch: Optional[int] = None,
                  faults: Iterable[Fault] = (),
                  wave_timeout: Optional[float] = None,
-                 device: Union[str, torch.device, None] = None) -> None:
+                 device: Union[str, torch.device, None] = None,
+                 dtype: Optional[torch.dtype] = None) -> None:
         if engine not in ("compiled", "reference"):
             raise ValueError(f"unknown engine {engine!r}")
         check_topology(topology)
@@ -442,6 +453,7 @@ class Scheduler:
         self.backend = DEFAULT_BACKEND if backend is None else backend
         self.batch = validate_batch(batch)
         self.device = torch.device("cuda" if device is None else device)
+        self.dtype = check_dtype(dtype)
         if engine == "compiled" and resolve_backend_name(
                 self.backend, topology.n_procs, topology) == CudaBackend.name:
             check_device(self.device)
@@ -480,7 +492,8 @@ class Scheduler:
     def _new_session(self, g: SPG, **kw) -> _GraphSession:
         return _GraphSession(g, self.topology,
                              compiled=self.engine == "compiled",
-                             device=self.device, faults=self._spec, **kw)
+                             device=self.device, faults=self._spec,
+                             dtype=self.dtype, **kw)
 
     # ------------------------------------------------------------- submit
     def submit(self, g: SPG, policy: Optional[Policy] = None,

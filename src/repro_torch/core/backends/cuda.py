@@ -21,11 +21,32 @@ only (:class:`PlanOut`).  The wrappers
 tensors that lie on the CPU; for CUDA tensors they launch the kernel or
 raise.  :data:`LAUNCHES` counts kernel launches per kernel.
 
-Numerics are float64 and bit-identical to the scalar reference: the
-kernels are built with ``--fmad=false`` and round every step explicitly
-(``__dadd_rn``/``__dmul_rn``/``__ddiv_rn``); the plain versions never
-fuse a multiply and an add, and divide by a device tensor (a CPU-scalar
-divisor would let PyTorch multiply by its reciprocal on the card).
+Numerics come in two real types, chosen per backend (``dtype``; the
+reference picks one per process with ``REPRO_PALLAS_DTYPE``):
+
+  * **float64** (the default): bit-identical to the scalar reference.
+  * **float32**: the reference's TPU numerics.  Decisions equal the f64
+    scalar reference's except where two candidates' selection values, or
+    two routes' LFTs, differ by less than :data:`F32_NEAR_TIE_RTOL`
+    (relative); there the winner is the f32-lexicographic ``(value,
+    EFT, proc)`` argmin, first index on exact f32 ties.  The tables, the
+    state carry, the alphas, the period and the carried AFTs are rounded
+    to float32 where they are staged (as the reference casts them); the
+    host mirrors stay float64, committed from the decoded float32
+    values by the shared ``apply``.  Predecessors are ordered by their
+    AFTs rounded to float32, the key the plan kernel sorts by on the
+    card, in staging and in decoding alike.
+
+In both the kernels are built with ``--fmad=false`` and round every step
+explicitly (``__dadd_rn``/``__dmul_rn``/``__ddiv_rn`` in f64,
+``__fadd_rn``/``__fmul_rn``/``__fdiv_rn`` in f32); the plain versions
+take their dtype from the tables and the state, never fuse a multiply
+and an add, and divide by a device tensor (a CPU-scalar divisor would
+let PyTorch multiply by its reciprocal on the card).  :data:`LAUNCHES`
+counts every launch of each kernel, and :data:`F32_LAUNCHES` those of
+its float32 instantiation (``sched_wave_kernel/f32`` and
+``sched_plan_kernel/f32`` in a run's report), as the attention kernel
+counts its variants.
 
 Where the reference buckets shapes to powers of two, tile-pads them and
 keeps a bounded cache of compiled kernels, these kernels take their
@@ -65,8 +86,9 @@ from ..faults import WaveTimeoutError
 from .base import CandidateEvaluator, Decision
 from .layout import src_layout, stacked_edge_ct, stacked_src_tensors
 
-__all__ = ["CudaBackend", "LAUNCHES", "Layout", "PlanOut", "ROWS_SMEM_MAX",
-           "RouteTables", "build_library", "check_device", "crossings",
+__all__ = ["CudaBackend", "DTYPES", "F32_LAUNCHES", "F32_NEAR_TIE_RTOL",
+           "LAUNCHES", "Layout", "PlanOut", "ROWS_SMEM_MAX", "RouteTables",
+           "build_library", "check_device", "check_dtype", "crossings",
            "launch_layout", "plan_plain", "reset_launches", "sched_plan",
            "sched_wave", "wave_plain"]
 
@@ -88,13 +110,33 @@ _MAX_SMEM = 232448
 # 4 x 132 alphas (the exp7 grid has 301) stays resident in one round
 ROWS_SMEM_MAX = 48 * 1024
 
-# kernel launches per kernel (plain-version calls are not counted)
+# The float32 mode's near-tie band (the reference's constant): two
+# candidates whose selection values, or two routes whose LFTs, agree
+# within this relative tolerance may resolve differently from the f64
+# scalar reference.  It documents the tests; no decision reads it.
+F32_NEAR_TIE_RTOL = 1e-5
+
+# the real types of the kernels: float64 (the default) and float32
+DTYPES = (torch.float64, torch.float32)
+
+# kernel launches per kernel, either real type, and of the float32
+# instantiations alone (plain-version calls are not counted)
 LAUNCHES: Dict[str, int] = {"sched_wave_kernel": 0, "sched_plan_kernel": 0}
+F32_LAUNCHES: Dict[str, int] = {"sched_wave_kernel": 0,
+                                "sched_plan_kernel": 0}
 
 
 def reset_launches() -> None:
-    for k in LAUNCHES:
-        LAUNCHES[k] = 0
+    for counts in (LAUNCHES, F32_LAUNCHES):
+        for k in counts:
+            counts[k] = 0
+
+
+def _count(kernel: str, dtype: torch.dtype) -> None:
+    if dtype == torch.float64:
+        _nvcc.count_launch((LAUNCHES, kernel))
+    else:
+        _nvcc.count_launch((LAUNCHES, kernel), (F32_LAUNCHES, kernel))
 
 
 def check_device(device) -> torch.device:
@@ -112,6 +154,19 @@ def check_device(device) -> torch.device:
     return dev
 
 
+def check_dtype(dtype) -> torch.dtype:
+    """The backend's real type: ``torch.float64`` (the default, also for
+    ``None``) or ``torch.float32`` (the near-tie mode).  Anything else
+    raises ``ValueError``, as the reference's ``REPRO_PALLAS_DTYPE=bf16``
+    does."""
+    if dtype is None:
+        return torch.float64
+    if not isinstance(dtype, torch.dtype) or dtype not in DTYPES:
+        raise ValueError(f"dtype must be torch.float64 or torch.float32, "
+                         f"got {dtype!r}")
+    return dtype
+
+
 # ----------------------------------------------------------------------
 # The library
 # ----------------------------------------------------------------------
@@ -127,12 +182,13 @@ class _Library:
 _P = ctypes.c_void_p
 _I = ctypes.c_int
 _D = ctypes.c_double
+_F = ctypes.c_float
 
 
 def _load() -> _Library:
     built = _nvcc.build("sched_kernels", [SOURCE], NVCC_FLAGS)
     lib = built.lib
-    lib.sched_smem.argtypes = [_I] * 7
+    lib.sched_smem.argtypes = [_I] * 8
     lib.sched_smem.restype = ctypes.c_size_t
     lib.sched_wave_launch.argtypes = (
         [_P] * 12 + [_D, _D] + [_P] * 18 + [_I] * 7 + [_P])
@@ -140,6 +196,12 @@ def _load() -> _Library:
     lib.sched_plan_launch.argtypes = (
         [_P] * 13 + [_D] + [_P] * 22 + [_I] * 12 + [_P])
     lib.sched_plan_launch.restype = _I
+    lib.sched_wave_launch_f32.argtypes = (
+        [_P] * 12 + [_F, _F] + [_P] * 18 + [_I] * 7 + [_P])
+    lib.sched_wave_launch_f32.restype = _I
+    lib.sched_plan_launch_f32.argtypes = (
+        [_P] * 13 + [_F] + [_P] * 22 + [_I] * 12 + [_P])
+    lib.sched_plan_launch_f32.restype = _I
     return _Library(built)
 
 
@@ -167,10 +229,15 @@ class RouteTables:
     lid: torch.Tensor       # (P+1, R, H, P) int32, -1 = no link
     valid: torch.Tensor     # (P+1, R, P) int32
     nhops: torch.Tensor     # (P+1, R, P) int32
-    ct: torch.Tensor        # (E+1, P+1, R, H, P) float64
-    comp: torch.Tensor      # (n, P) float64
-    ldet: torch.Tensor      # (n, P) float64, exit rows 1.0
+    ct: torch.Tensor        # (E+1, P+1, R, H, P) real
+    comp: torch.Tensor      # (n, P) real
+    ldet: torch.Tensor      # (n, P) real, exit rows 1.0
     n_links: int
+
+    @property
+    def dtype(self) -> torch.dtype:
+        """The kernels' real type: float64 or float32."""
+        return self.comp.dtype
 
     @property
     def P(self) -> int:
@@ -252,8 +319,10 @@ def launch_layout(T: RouteTables, K: int, B: int, n: int = 0) -> Layout:
                          f"{_MAX_LANES} candidate lanes")
     lib = build_library()
 
+    real = T.comp.element_size()
+
     def smem(chunk: int, rows: int) -> int:
-        return int(lib.lib.sched_smem(P, L, K, R, H, chunk, rows))
+        return int(lib.lib.sched_smem(P, L, K, R, H, chunk, rows, real))
 
     if smem(1, 0) > _MAX_SMEM:
         raise ValueError(f"{smem(1, 0)} bytes of shared memory exceed "
@@ -264,15 +333,20 @@ def launch_layout(T: RouteTables, K: int, B: int, n: int = 0) -> Layout:
     return Layout(chunk, rows, smem(chunk, rows))
 
 
-def _check_tables(T: RouteTables) -> None:
+def _check_tables(T: RouteTables) -> torch.dtype:
+    """Checks the tables and returns their real type."""
     P, R, H, E = T.P, T.R, T.H, T.E
     n = T.comp.shape[0]
+    f = T.dtype
+    if f not in DTYPES:
+        raise ValueError(f"tables: expected float64 or float32, got {f}")
     _check(T.lid, torch.int32, (P + 1, R, H, P), "lid")
     _check(T.valid, torch.int32, (P + 1, R, P), "valid")
     _check(T.nhops, torch.int32, (P + 1, R, P), "nhops")
-    _check(T.ct, torch.float64, (E + 1, P + 1, R, H, P), "ct")
-    _check(T.comp, torch.float64, (n, P), "comp")
-    _check(T.ldet, torch.float64, (n, P), "ldet")
+    _check(T.ct, f, (E + 1, P + 1, R, H, P), "ct")
+    _check(T.comp, f, (n, P), "comp")
+    _check(T.ldet, f, (n, P), "ldet")
+    return f
 
 
 # ----------------------------------------------------------------------
@@ -401,8 +475,8 @@ def wave_plain(T: RouteTables, task: torch.Tensor, real: torch.Tensor,
     P = T.P
     dev = paft.device
     st = tuple(s[None] for s in state)
-    alpha_t = torch.full((1, 1), alpha, dtype=torch.float64, device=dev)
-    period_t = torch.full((1, P), period, dtype=torch.float64, device=dev)
+    alpha_t = torch.full((1, 1), alpha, dtype=T.dtype, device=dev)
+    period_t = torch.full((1, P), period, dtype=T.dtype, device=dev)
     cols: List[Tuple[torch.Tensor, ...]] = []
     # analysis: allow[host-sync] the plain version runs on the CPU only: no device to wait for
     task_l, real_l, exit_l = task.tolist(), real.tolist(), exitf.tolist()
@@ -434,7 +508,7 @@ def plan_plain(T: RouteTables, task: torch.Tensor, real: torch.Tensor,
     aft = aft0[None].expand(A, n).clone()
     proc = proc0[None].expand(A, n).clone()
     alpha_t = alphas[:, None]
-    period_t = torch.full((A, P), period, dtype=torch.float64, device=dev)
+    period_t = torch.full((A, P), period, dtype=T.dtype, device=dev)
     out = _empty_out((A, W, B), K, T, dev)
     # analysis: allow[host-sync] the plain version runs on the CPU only: no device to wait for
     task_l, real_l, exit_l = task.tolist(), real.tolist(), exitf.tolist()
@@ -470,7 +544,7 @@ def plan_plain(T: RouteTables, task: torch.Tensor, real: torch.Tensor,
 def _empty_out(lead: Tuple[int, ...], K: int, T: RouteTables,
                dev: torch.device) -> PlanOut:
     P, H = T.P, T.H
-    f = dict(dtype=torch.float64, device=dev)
+    f = dict(dtype=T.dtype, device=dev)
     i = dict(dtype=torch.int32, device=dev)
     return PlanOut(torch.empty(lead, **i), torch.empty(lead, **f),
                    torch.empty(lead, **f), torch.empty(lead + (P,), **f),
@@ -499,30 +573,32 @@ def sched_wave(T: RouteTables, task: torch.Tensor, real: torch.Tensor,
     lib = build_library()
     B, K = paft.shape
     P, L = T.P, T.n_links
-    _check_tables(T)
+    f = _check_tables(T)
     for t, dt, shp, what in ((task, torch.int32, (B,), "task"),
                              (real, torch.int32, (B,), "real"),
                              (exitf, torch.int32, (B,), "exitf"),
-                             (paft, torch.float64, (B, K), "paft"),
+                             (paft, f, (B, K), "paft"),
                              (psrc, torch.int32, (B, K), "psrc"),
                              (pedge, torch.int32, (B, K), "pedge"),
-                             (state[0], torch.float64, (L,), "link_free")):
+                             (state[0], f, (L,), "link_free")):
         _check(t, dt, shp, what)
     for s in state[1:]:
-        _check(s, torch.float64, (P,), "processor state")
+        _check(s, f, (P,), "processor state")
     lay = launch_layout(T, K, B)
     st = tuple(torch.empty_like(s) for s in state)
     out = _empty_out((B,), K, T, paft.device)
+    launch = lib.lib.sched_wave_launch if f == torch.float64 \
+        else lib.lib.sched_wave_launch_f32
     with torch.cuda.device(paft.device):
         stream = torch.cuda.current_stream(paft.device).cuda_stream
-        rc = lib.lib.sched_wave_launch(
+        rc = launch(
             *(t.data_ptr() for t in T.tensors()),
             *(t.data_ptr() for t in (task, real, exitf, paft, psrc, pedge)),
             float(alpha), float(period),
             *(t.data_ptr() for t in state + st + out.tensors()),
             B, K, T.R, T.H, P, L, lay.chunk, stream)
     _raise_on(rc, "sched_wave_kernel")
-    _nvcc.count_launch((LAUNCHES, "sched_wave_kernel"))
+    _count("sched_wave_kernel", f)
     return out, st
 
 
@@ -546,33 +622,35 @@ def sched_plan(T: RouteTables, task: torch.Tensor, real: torch.Tensor,
     A = alphas.shape[0]
     P, L = T.P, T.n_links
     n = aft0.shape[0]
-    _check_tables(T)
+    f = _check_tables(T)
     for t, dt, shp, what in ((task, torch.int32, (W, B), "task"),
                              (real, torch.int32, (W, B), "real"),
                              (exitf, torch.int32, (W, B), "exitf"),
                              (pred, torch.int32, (W, B, K), "pred"),
                              (pvalid, torch.int32, (W, B, K), "pvalid"),
                              (pedge, torch.int32, (W, B, K), "pedge"),
-                             (alphas, torch.float64, (A,), "alphas"),
-                             (state[0], torch.float64, (L,), "link_free"),
-                             (aft0, torch.float64, (n,), "aft0"),
+                             (alphas, f, (A,), "alphas"),
+                             (state[0], f, (L,), "link_free"),
+                             (aft0, f, (n,), "aft0"),
                              (proc0, torch.int32, (n,), "proc0")):
         _check(t, dt, shp, what)
     for s in state[1:]:
-        _check(s, torch.float64, (P,), "processor state")
+        _check(s, f, (P,), "processor state")
     if T.comp.shape[0] != n:
         raise ValueError(f"aft0 has {n} tasks, comp {T.comp.shape[0]}")
     lay = launch_layout(T, K, B, n)
     dev = alphas.device
-    f = dict(dtype=torch.float64, device=dev)
+    fd = dict(dtype=f, device=dev)
     out = _empty_out((A, W, B), K, T, dev)
-    aft = torch.empty((A, n), **f)
+    aft = torch.empty((A, n), **fd)
     proc = torch.empty((A, n), dtype=torch.int32, device=dev)
-    st = (torch.empty((A, L), **f),) + tuple(torch.empty((A, P), **f)
-                                            for _ in range(4))
+    st = (torch.empty((A, L), **fd),) + tuple(torch.empty((A, P), **fd)
+                                             for _ in range(4))
+    launch = lib.lib.sched_plan_launch if f == torch.float64 \
+        else lib.lib.sched_plan_launch_f32
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
-        rc = lib.lib.sched_plan_launch(
+        rc = launch(
             *(t.data_ptr() for t in T.tensors()),
             *(t.data_ptr() for t in (task, real, exitf, pred, pvalid, pedge,
                                      alphas)),
@@ -582,7 +660,7 @@ def sched_plan(T: RouteTables, task: torch.Tensor, real: torch.Tensor,
             A, W, B, K, T.R, T.H, P, L, n, T.E, lay.chunk, lay.rows,
             stream)
     _raise_on(rc, "sched_plan_kernel")
-    _nvcc.count_launch((LAUNCHES, "sched_plan_kernel"))
+    _count("sched_plan_kernel", f)
     return out, st, aft, proc
 
 
@@ -592,7 +670,10 @@ def crossings(win: np.ndarray, ca: np.ndarray, cb: np.ndarray,
     winner lanes ``win`` ``(...)``, coefficients ``ca``/``cb``
     ``(..., P)``.  The same IEEE operations elementwise, and a min over
     the rivals in place of the running min (exact), so each bound is the
-    scalar method's float."""
+    scalar method's float.  The coefficients are read in float64 (a
+    float32 plan's too, as the reference's host reads them)."""
+    ca = np.asarray(ca, dtype=np.float64)
+    cb = np.asarray(cb, dtype=np.float64)
     p = win.astype(np.int64)[..., None]
     a_c = np.take_along_axis(ca, p, -1)
     b_c = np.take_along_axis(cb, p, -1)
@@ -621,14 +702,18 @@ def _fetch(out: PlanOut) -> Tuple[np.ndarray, ...]:
 # ----------------------------------------------------------------------
 class CudaBackend(CandidateEvaluator):
     """Device candidate evaluation: one kernel launch per plan or sweep
-    (``scan=True``, the default) or per wave (``scan=False``)."""
+    (``scan=True``, the default) or per wave (``scan=False``), in the
+    instance's real type unless ``dtype`` is given (``torch.float64`` or
+    ``torch.float32``, the near-tie mode)."""
 
     name = "cuda"
 
-    def __init__(self, inst, device=None, scan: bool = True) -> None:
+    def __init__(self, inst, device=None, scan: bool = True,
+                 dtype=None) -> None:
         super().__init__(inst)
         self.device = check_device(inst.device if device is None
                                    else device)
+        self.dtype = check_dtype(inst.dtype if dtype is None else dtype)
         self.scan = scan
         P = inst.P
         self._L = max(1, inst._n_links)
@@ -654,14 +739,20 @@ class CudaBackend(CandidateEvaluator):
             ldet = np.array(inst.ldet, dtype=np.float64)
             ldet[inst._is_exit, :] = 1.0
             self._tables = RouteTables(
-                *(self._dev(x) for x in (lid, valid, nhops, ct,
-                                         inst.comp, ldet)),
+                *(self._dev(x) for x in (lid, valid, nhops)),
+                *(self._real(x) for x in (ct, inst.comp, ldet)),
                 n_links=self._L)
         return self._tables
 
     def _dev(self, arr) -> torch.Tensor:
         # a private contiguous copy: staged arrays may be read-only views
         return torch.from_numpy(np.array(arr, order="C")).to(self.device)
+
+    def _real(self, arr) -> torch.Tensor:
+        """A float64 host array staged in the kernels' real type (rounded
+        to nearest on the host, as the reference casts it)."""
+        t = torch.from_numpy(np.array(arr, dtype=np.float64, order="C"))
+        return t.to(self.dtype).to(self.device)
 
     # ------------------------------------------------------------- state
     def _alloc(self) -> None:
@@ -678,8 +769,9 @@ class CudaBackend(CandidateEvaluator):
 
     def _state_from_mirrors(self) -> State:
         self.n_state_uploads += 1
-        return tuple(self._dev(x) for x in (self.link_free, self.proc_free,
-                                            self.loads, self._lop, self._bp))
+        return tuple(self._real(x) for x in (self.link_free, self.proc_free,
+                                             self.loads, self._lop,
+                                             self._bp))
 
     def _commit_host(self, j: int, p: int, est: float, eft: float,
                      msgs: list) -> None:
@@ -719,10 +811,22 @@ class CudaBackend(CandidateEvaluator):
             contrib = _INF
         return (p, est, eft, msgs, ca, cb, contrib)
 
-    def _sorted_preds(self, j: int, aft: Sequence[float]) -> List[int]:
+    def _sort_keys(self, aft: List[float]) -> List[float]:
+        """The AFTs as the plan kernel holds and sorts them: ``aft``
+        itself in float64, a copy rounded to float32 in float32 (two
+        float64 AFTs of a replayed prefix may round to one float32, and
+        then the id decides)."""
+        if self.dtype == torch.float64:
+            return aft
+        # analysis: allow[host-sync] a host list rounded on the host; no tensor
+        return np.asarray(aft, dtype=np.float32).astype(np.float64).tolist()
+
+    def _sorted_preds(self, j: int, key: Sequence[float]) -> List[int]:
+        """``j``'s predecessors in the kernels' ``(aft, id)`` order, the
+        AFTs read from ``key`` (:meth:`_sort_keys`)."""
         preds = self.inst._preds[j]
         if len(preds) > 1:
-            preds = sorted(preds, key=lambda i: (aft[i], i))
+            preds = sorted(preds, key=lambda i: (key[i], i))
         return preds
 
     # ---------------------------------------------------- per-wave path
@@ -740,8 +844,9 @@ class CudaBackend(CandidateEvaluator):
         psrc = np.full((B, K), P, dtype=np.int32)
         pedge = np.full((B, K), E, dtype=np.int32)
         eidx = inst._edge_index
+        key = self._sort_keys(self.aft)
         for b, j in enumerate(js):
-            for k, i in enumerate(self._sorted_preds(j, self.aft)):
+            for k, i in enumerate(self._sorted_preds(j, key)):
                 paft[b, k] = self.aft[i]
                 psrc[b, k] = self.proc_of[i]
                 pedge[b, k] = eidx[(i, j)]
@@ -750,7 +855,7 @@ class CudaBackend(CandidateEvaluator):
             self._state_dirty = False
         return dict(T=self.tables(), task=self._dev(task),
                     real=self._dev(real), exitf=self._dev(exitf),
-                    paft=self._dev(paft), psrc=self._dev(psrc),
+                    paft=self._real(paft), psrc=self._dev(psrc),
                     pedge=self._dev(pedge), alpha=self.alpha,
                     period=self.period, state=self._state)
 
@@ -769,8 +874,11 @@ class CudaBackend(CandidateEvaluator):
         # analysis: allow[host-sync] NumPy arrays the one fetch already brought to the host
         bound = bound.tolist()
         decisions: List[Decision] = []
+        # the wave's predecessors are in earlier waves: its commits do not
+        # move their keys
+        key = self._sort_keys(self.aft)
         for b, j in enumerate(js):
-            preds = self._sorted_preds(j, self.aft)
+            preds = self._sorted_preds(j, key)
             srcs = [self.proc_of[i] for i in preds]
             d = self._decision(j, win[b], preds, srcs, est[b], eft[b],
                                ca[b], cb[b], lst[b], lft[b], route[b],
@@ -823,9 +931,9 @@ class CudaBackend(CandidateEvaluator):
                     real=self._dev(real), exitf=self._dev(exitf),
                     pred=self._dev(pred), pvalid=self._dev(pvalid),
                     pedge=self._dev(pedge),
-                    alphas=self._dev(np.asarray(al, dtype=np.float64)),
+                    alphas=self._real(al),
                     period=self.period, state=self._state_from_mirrors(),
-                    aft0=self._dev(np.asarray(self.aft, dtype=np.float64)),
+                    aft0=self._real(self.aft),
                     proc0=self._dev(proc0))
 
     def _plan_dispatch(self, waves: Sequence[Sequence[int]],
@@ -863,12 +971,13 @@ class CudaBackend(CandidateEvaluator):
             aft_l, proc_l = self.aft, self.proc_of
         else:
             aft_l, proc_l = list(self.aft), list(self.proc_of)
+        key = self._sort_keys(aft_l)
         out: List[List[Decision]] = []
         for wv, js in enumerate(waves):
             ds: List[Decision] = []
             for b, j in enumerate(js):
                 p = win[wv][b]
-                preds = self._sorted_preds(j, aft_l)
+                preds = self._sorted_preds(j, key)
                 srcs = [proc_l[i] for i in preds]
                 d = self._decision(j, p, preds, srcs, est[wv][b],
                                    eft[wv][b], ca[wv][b], cb[wv][b],
@@ -879,6 +988,8 @@ class CudaBackend(CandidateEvaluator):
                 else:
                     proc_l[j] = p
                     aft_l[j] = d[2]
+                if key is not aft_l:
+                    key[j] = d[2]       # a float32 value: its own key
                 ds.append(d)
             out.append(ds)
         return out

@@ -46,6 +46,7 @@ from typing import Dict, List, Optional, Sequence, Tuple, Union, TYPE_CHECKING
 import numpy as np
 
 from .backends import CandidateEvaluator, backend_class, resolve_backend_name
+from .backends.cuda import check_dtype
 from .faults import (DOWN_COMP, INFEASIBLE_EFT, FaultSpec,
                      InfeasibleScheduleError)
 from .graph import SPG
@@ -159,12 +160,15 @@ class CompiledInstance:
                  rank: Optional[np.ndarray] = None,
                  ldet: Optional[np.ndarray] = None,
                  faults: Optional[FaultSpec] = None,
-                 device: "Union[str, torch.device, None]" = None
-                 ) -> None:
+                 device: "Union[str, torch.device, None]" = None,
+                 dtype: "Optional[torch.dtype]" = None) -> None:
         self.g, self.tg = g, tg
         # where the device backend keeps its tables and runs its kernels:
         # the card unless the caller asks for the CPU (plain versions)
         self.device = "cuda" if device is None else device
+        # the device backend's real type (float64, or float32 for the
+        # near-tie mode); the host backends ignore it
+        self.dtype = check_dtype(dtype)
         self.P = P = tg.n_procs
         self.n = g.n
         # Fault masking: a down processor's comp column and

@@ -46,6 +46,11 @@ from .topology import Topology
 # (every commit is plain IEEE arithmetic), but the duration check
 # re-multiplies weight x rate, so allow a few ulps of headroom.
 _EPS = 1e-9
+# The slack for a plan of the device backend's float32 mode: its times
+# are float32 sums (an EFT is est + comp rounded to float32, its comp a
+# float32 too), so a duration is comp to within 2**-23 of the horizon;
+# four times that.  Every other invariant holds exactly there as well.
+FLOAT32_RTOL = 4 * 2.0 ** -23
 
 
 class ScheduleValidationError(ValueError):
@@ -59,12 +64,16 @@ class ScheduleValidationError(ValueError):
 
 
 def schedule_violations(s: Schedule,
-                        spec: Optional[FaultSpec] = None) -> List[str]:
-    """Every invariant violation of ``s`` (empty list == valid)."""
+                        spec: Optional[FaultSpec] = None,
+                        rtol: float = _EPS) -> List[str]:
+    """Every invariant violation of ``s`` (empty list == valid).  ``rtol``
+    is the comparisons' slack relative to the horizon: the float64
+    default, or :data:`FLOAT32_RTOL` for a plan of the device backend's
+    float32 mode."""
     g, tg = s.graph, s.topology
     out: List[str] = []
     horizon = float(max(s.finish.max(), 1.0)) if g.n else 1.0
-    tol = _EPS * horizon
+    tol = rtol * horizon
     down_links = set(spec.down_links) if spec is not None else set()
     down_procs = set(spec.down_procs) if spec is not None else set()
 
@@ -81,7 +90,7 @@ def schedule_violations(s: Schedule,
             out.append(f"task {t}: malformed interval [{st}, {fi}]")
             continue
         comp = g.comp(t, p, tg.rates)
-        if abs((fi - st) - comp) > tol + _EPS * abs(comp):
+        if abs((fi - st) - comp) > tol + rtol * abs(comp):
             out.append(f"task {t}: duration {fi - st:.9g} != "
                        f"comp(t, p{p}) = {comp:.9g}")
 

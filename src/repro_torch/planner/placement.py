@@ -12,9 +12,9 @@ Fig. 2 — a slower shared bus with real contention).
 and returns assignments + predicted step makespans.  Re-planning with
 measured rates is the framework's straggler-mitigation path: static
 re-scheduling, exactly the paper's answer for time-predictable systems.
-``backend=`` (``"cuda"``, ``"scalar"``, ``"vector"`` or ``"auto"``) and
-``device=`` thread through
-to the scheduler session.
+``backend=`` (``"cuda"``, ``"scalar"``, ``"vector"`` or ``"auto"``),
+``device=`` and ``dtype=`` (the cuda backend's real type) thread
+through to the scheduler session.
 
 Twin of :mod:`repro.planner.placement`: :func:`gpu_slice_topology` names
 its processors, links and routes as the reference's
@@ -27,6 +27,7 @@ import dataclasses
 from typing import Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
+import torch
 
 from ..core import (HSV_CC, HVLB_CC_A, HVLB_CC_B, Scheduler, Topology,
                     load_balance)
@@ -107,9 +108,11 @@ def plan_placement(g: SPG, tg: Topology, algorithm: str = "hvlb_b",
                    alpha_max: float = 3.0,
                    engine: str = "compiled",
                    backend: Optional[str] = None,
-                   device: Optional[str] = None) -> PlacementPlan:
+                   device: Optional[str] = None,
+                   dtype: Optional[torch.dtype] = None) -> PlacementPlan:
     sched = Scheduler(tg, policy=_policy_for(algorithm, alpha_max),
-                      engine=engine, backend=backend, device=device)
+                      engine=engine, backend=backend, device=device,
+                      dtype=dtype)
     s = sched.submit(g).schedule
     return PlacementPlan(
         schedule=s, algorithm=algorithm, makespan_s=s.makespan,
@@ -121,7 +124,8 @@ def replan(g: SPG, tg: Topology, measured_rates: Sequence[float],
            algorithm: str = "hvlb_b",
            engine: str = "compiled",
            backend: Optional[str] = None,
-           device: Optional[str] = None) -> PlacementPlan:
+           device: Optional[str] = None,
+           dtype: Optional[torch.dtype] = None) -> PlacementPlan:
     """Straggler mitigation: re-run the static scheduler with observed
     slice rates (the paper's time-predictable alternative to dynamic
     work stealing)."""
@@ -129,4 +133,4 @@ def replan(g: SPG, tg: Topology, measured_rates: Sequence[float],
                    dict(tg.link_speed), dict(tg.routes),
                    ctml_mode=tg.ctml_mode)
     return plan_placement(g, tg2, algorithm, engine=engine, backend=backend,
-                          device=device)
+                          device=device, dtype=dtype)

@@ -9,7 +9,8 @@ burst without waiting gets the full benefit of request coalescing.
 
 Every tenant's scheduler runs on ``--device`` (default ``cuda``, the
 card; a host without one refuses to start unless ``--device cpu`` or
-``--backend scalar`` is given) with ``--backend`` (default ``cuda``).
+``--backend scalar`` is given) with ``--backend`` (default ``cuda``) in
+``--dtype`` (default ``float64``; ``float32`` is the near-tie mode).
 
 Example::
 
@@ -23,6 +24,8 @@ from __future__ import annotations
 import argparse
 import asyncio
 from typing import Optional
+
+import torch
 
 from ..core import Topology, fully_switched_topology, paper_topology
 
@@ -45,10 +48,13 @@ def _parse_topology(spec: str) -> Topology:
 
 
 def build_service(args: argparse.Namespace) -> SchedulerService:
+    # a namespace without ``dtype`` (built by hand) is float64's
+    dtype = getattr(torch, getattr(args, "dtype", "float64"))
     return SchedulerService(_parse_topology(args.topology),
                             workers=args.workers, window=args.window,
                             coalesce=not args.no_coalesce,
-                            backend=args.backend, device=args.device)
+                            backend=args.backend, device=args.device,
+                            dtype=dtype)
 
 
 async def _handle(service: SchedulerService,
@@ -117,7 +123,7 @@ async def _amain(args: argparse.Namespace) -> None:
         print(f"repro_torch.service listening on {addr[0]}:{addr[1]} "
               f"(workers={args.workers}, window={args.window}s, "
               f"coalesce={not args.no_coalesce}, backend={args.backend}, "
-              f"device={args.device})", flush=True)
+              f"device={args.device}, dtype={args.dtype})", flush=True)
         async with server:
             await server.serve_forever()
     finally:
@@ -145,6 +151,11 @@ def main(argv: Optional[list] = None) -> None:
     ap.add_argument("--backend", default="cuda", choices=("cuda", "scalar"),
                     help="every tenant session's candidate-evaluation "
                          "backend")
+    ap.add_argument("--dtype", default="float64",
+                    choices=("float64", "float32"),
+                    help="the cuda backend's real type: float64 (bit-"
+                         "identical to scalar) or float32 (the near-tie "
+                         "mode)")
     args = ap.parse_args(argv)
     try:
         asyncio.run(_amain(args))

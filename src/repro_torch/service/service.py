@@ -63,7 +63,7 @@ from .._nvcc import KernelError
 from ..core import (HVLB_CC_B, FleetPlan, InfeasibleScheduleError, Plan,
                     Policy, ReplayStats, Scheduler, Topology)
 from ..core.backends import CudaBackend, resolve_backend_name
-from ..core.backends.cuda import check_device
+from ..core.backends.cuda import check_device, check_dtype
 from ..core.faults import (Fault, FaultSpec, LinkDegraded, LinkDown,
                            ProcessorDown, WaveTimeoutError)
 from ..core.graph import SPG
@@ -205,8 +205,9 @@ class SchedulerService:
     baseline).  ``max_tenants_per_worker`` bounds live Scheduler
     sessions per lane with LRU eviction; an evicted tenant keeps its
     graphs/faults/pinned period and is transparently rebuilt on its
-    next request.  ``backend`` and ``device`` are every tenant
-    session's (the cuda backend on the card by default); a service
+    next request.  ``backend``, ``device`` and ``dtype`` are every
+    tenant session's (the cuda backend on the card in float64 by
+    default; ``dtype=torch.float32`` is the near-tie mode); a service
     asked to run on a card the host does not have raises here.
     """
 
@@ -217,8 +218,10 @@ class SchedulerService:
                  backend: Optional[str] = None,
                  batch: Optional[int] = None,
                  max_tenants_per_worker: Optional[int] = None,
-                 device: Union[str, torch.device, None] = None) -> None:
+                 device: Union[str, torch.device, None] = None,
+                 dtype: Optional[torch.dtype] = None) -> None:
         self.device = torch.device("cuda" if device is None else device)
+        self.dtype = check_dtype(dtype)
         if resolve_backend_name(backend, topology.n_procs,
                                 topology) == CudaBackend.name:
             check_device(self.device)
@@ -465,7 +468,7 @@ class SchedulerService:
                    policy: Optional[Policy]) -> Scheduler:
         return Scheduler(t.topology, policy=policy, backend=self.backend,
                          batch=self.batch, faults=t.fault_records,
-                         device=self.device)
+                         device=self.device, dtype=self.dtype)
 
     def _require_session(self, t: _Tenant) -> Scheduler:
         if not t.graphs:

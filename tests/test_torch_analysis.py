@@ -11,8 +11,10 @@ and invocation tests run against the port's ``main``.
 The kernel rules (``ctypes-arity``, ``ctypes-type``, ``cuda-rounding``,
 ``cuda-fmad-flag``) each get a fixture that fires and one that does not,
 among them copies of the shipped sources with one planted fault: a bare
-double add in ``sched_kernels.cu``, a ``sched_wave_launch.argtypes`` one
-entry short.  The shipped tree analyzes clean with an empty baseline.
+add in ``sched_kernels.cu`` on a ``float`` operand or on one of the
+kernels' template real type, a ``sched_wave_launch.argtypes`` one entry
+short, a ``c_double`` where a float32 entry point takes a ``float``.
+The shipped tree analyzes clean with an empty baseline.
 """
 import inspect
 import io
@@ -295,23 +297,73 @@ def _copy_sched(tmp_path):
 KERNEL_RULES = "ctypes-arity,ctypes-type,cuda-rounding,cuda-fmad-flag"
 
 
+def _plant(tmp_path, site, fault):
+    """The shipped scheduling binding and source with ``site`` (found
+    once) replaced by ``fault``; returns the binding and the line."""
+    py, cu = _copy_sched(tmp_path)
+    text = cu.read_text()
+    assert text.count(site) == 1, site
+    cu.write_text(text.replace(site, fault))
+    return py, text[:text.index(site)].count("\n") + 1
+
+
 def test_shipped_sources_are_clean_and_checked(tmp_path):
     """Each shipped binding, with its source, is clean under the kernel
     rules, and the pass did read the scheduling source: a planted bare
-    double add in ``sched_kernels.cu`` is found at its line."""
+    add in ``sched_kernels.cu`` (the hop's Eq. 14 sum, in the kernels'
+    real type) is found at its line."""
     for py in (PKG / "core" / "backends" / "cuda.py",
                PKG / "kernels" / "flash_attention" / "kernel.py",
                PKG / "kernels" / "ssm_scan" / "kernel.py"):
         code, out, _ = run_port([str(py), "--rules", KERNEL_RULES])
         assert code == 0, out
-    py, cu = _copy_sched(tmp_path)
-    text = cu.read_text()
-    site = "const double x_ = __dadd_rn(lst, x.c[i]);"
-    assert text.count(site) == 1
-    cu.write_text(text.replace(site, "const double x_ = lst + x.c[i];"))
-    line = text[:text.index(site)].count("\n") + 1
+    py, line = _plant(tmp_path, "const F x_ = radd(lst, x.c[i]);",
+                      "const F x_ = lst + x.c[i];")
     code, out, _ = run_port([str(py), "--rules", KERNEL_RULES])
     assert code == 1 and findings(out) == [("cuda-rounding", line)], out
+
+
+@pytest.mark.parametrize("site,fault", [
+    # a float operand: the f32 rounding step itself
+    ("  return __fadd_rn(a, b);", "  return a + b;"),
+    ("  return __fdiv_rn(a, b);", "  return a / b;"),
+    # a template-typed operand (the kernels' real type F): Def. 4.1's
+    # 1 + lop * alpha, and Eq. 14's first hop
+    ("c_bp = radd(F(1), rmul(c_lop, alpha));\n      }\n    }\n  } else {",
+     "c_bp = F(1) + rmul(c_lop, alpha);\n      }\n    }\n  } else {"),
+    ("  hi[0] = radd(lo[0], c[0]);", "  hi[0] = lo[0] + c[0];"),
+    ("  value = rmul(a, D.is_exit ? F(1) : S.bp[q]);",
+     "  value = a * (D.is_exit ? F(1) : S.bp[q]);")],
+    ids=["float-add", "float-div", "template-def41", "template-eq14",
+         "template-value"])
+def test_planted_real_type_rounding_faults_are_found(tmp_path, site, fault):
+    """A bare operator on a ``float`` operand, or on one of the kernels'
+    template real type, in a copy of ``sched_kernels.cu`` is flagged at
+    its line: in either instantiation it would round differently from
+    the reference (a contraction, or a step in the wrong type)."""
+    py, line = _plant(tmp_path, site, fault)
+    code, out, _ = run_port([str(py), "--rules", "cuda-rounding"])
+    assert code == 1 and findings(out) == [("cuda-rounding", line)], out
+
+
+def test_shipped_f32_entry_points_are_bound_exactly(tmp_path):
+    """The float32 entry points are bound with ``c_float`` scalars: a
+    ``c_double`` alpha on ``sched_wave_launch_f32`` is a type finding,
+    one entry short on ``sched_plan_launch_f32`` an arity finding."""
+    py, _ = _copy_sched(tmp_path)
+    text = py.read_text()
+    good = "[_P] * 12 + [_F, _F] + [_P] * 18 + [_I] * 7 + [_P]"
+    assert text.count(good) == 1
+    py.write_text(text.replace(good, good.replace("[_F, _F]", "[_D, _F]")))
+    code, out, _ = run_port([str(py), "--rules", KERNEL_RULES])
+    assert code == 1 and [r for r, _ in findings(out)] == ["ctypes-type"]
+    assert "sched_wave_launch_f32.argtypes[12] is c_double" in out
+    good = "[_P] * 13 + [_F] + [_P] * 22 + [_I] * 12 + [_P]"
+    assert text.count(good) == 1
+    py.write_text(text.replace(good, good.replace("[_I] * 12", "[_I] * 11")))
+    code, out, _ = run_port([str(py), "--rules", KERNEL_RULES])
+    assert code == 1 and [r for r, _ in findings(out)] == ["ctypes-arity"]
+    assert "sched_plan_launch_f32.argtypes has 48 entries" in out
 
 
 def test_shipped_binding_one_entry_short(tmp_path):
