@@ -72,7 +72,8 @@ then holds each family's decode at full width: falcon-mamba's
 zamba2's (12 layers in 2 groups of 6) in f64 elementwise and in f32 and
 bf16 by relative RMS against the forward's own error in that dtype
 (then block by block in f32), olmoe's (2 layers) on the card against
-the CPU in f64 and f32 with every MoE call's routing equal, and
+the CPU in f64 and f32 with every MoE call's routing equal (the f64
+card side 10 times in this process against one CPU result), and
 dbrx-132b's MoE layer alone at full width (card against CPU, a
 decode-sized and a prefill-sized group; the model does not fit one
 card).  Phase ``train`` drives the training path of ``python -m
@@ -90,7 +91,12 @@ CPU at full width (2 layers, batch 2, seq 512) for qwen2-0.5b and
 olmoe-1b-7b: the loss, every gradient and every updated parameter in
 f64 elementwise at 1e-9, and in f32 (TF32 off) by relative RMS within
 ``F32_GAP_RATIO`` times the CPU's own f32 error, with the MoE's routing
-equal in f64 (the f32 runs take the f64 picks).  Phase ``mesh`` drives
+equal in f64 (the f32 runs take the f64 picks).  Last it runs the
+model's attention core (``layers.attention_core``) forward and backward
+at a rank's shape of qwen3-8b and dbrx-132b ``train_4k`` in bf16: its
+own peak within 1.3 times one (Sq, Sk) f32 buffer, the gradients of
+its first 2 rows against ``_sdpa_full``'s under autograd (f32 at 1e-5
+relative RMS, bf16 at 2e-2).  Phase ``mesh`` drives
 the sharding path: the launcher's ``--mesh 1x1`` (a one-rank NCCL
 group, a DeviceMesh, every parameter, optimizer leaf and batch input a
 DTensor) for 3 steps at the train phase's size and seed, held to the
@@ -103,10 +109,14 @@ loss head against ``torch.logsumexp`` and
 ``gather`` bit for bit; the dry run (``launch/dryrun.py``) at full size
 on meta tensors in a process that sees no card (dbrx-132b decode_32k on
 the 16 x 16 pod, dbrx-132b train_4k on the 2 x 16 x 16 multi-pod,
-qwen3-8b train_4k on the pod: each rank's state under the card's
-memory, each cell's peak with activations beside it, no all-gather of
-a train cell's logits), and the dry run's peak of the launcher's own
-step on a (1, 1) mesh against the bytes the card allocated for it
+qwen3-8b train_4k on the pod: each rank's peak with its activations
+under 0.9 of the card's memory, no all-gather of a train cell's logits,
+no all-reduce in a train cell as large as its f32 embedding table or
+its largest stacked attention leaf, none in qwen3-8b's above the
+reference's largest collective, 1,073,741,824 bytes; each cell's
+largest all-reduce with its shape and op), and the dry run's peak of
+the launcher's own step on a (1, 1) mesh against the bytes the card
+allocated for it
 (within 0.85-1.15); and 4 CPU ranks (gloo,
 2 x 2) at full width, 2 layers, f64, one train step of qwen2-0.5b and
 olmoe-1b-7b held to the same step on one rank (the card, no mesh) at
@@ -308,10 +318,34 @@ EXAMPLES = (("quickstart", []),
             ("train_lm", ["--ckpt", "build/example_ckpt"]))
 EXAMPLE_TIMEOUT_S = 300
 # the dry run at full size on meta tensors (fake groups of 256 and 512
-# ranks), each rank's bytes under the card's memory
+# ranks): each rank's state, and its peak with the activations, under
+# DRYRUN_CARD_SHARE of the card's memory
 DRYRUN_CELLS = (("dbrx-132b", "decode_32k", "pod"),
                 ("dbrx-132b", "train_4k", "multipod"),
                 ("qwen3-8b", "train_4k", "pod"))
+DRYRUN_CARD_SHARE = 0.9
+# the largest collective of the reference's own dry run on a cell (its
+# compiled HLO on the CPU, ROADMAP.md section 1): no all-reduce of the
+# port's may be larger there
+REF_LARGEST_COLLECTIVE = {"qwen3-8b/train_4k/pod": 1_073_741_824}
+# the attention core's probe (phase train): one forward and backward at
+# a rank's real shape in bf16, train_4k's 4096 positions: qwen3-8b on the
+# pod (16 rows; its 8 KV heads do not divide the model axis, so a rank
+# holds all 32 heads) and dbrx-132b on the multi-pod (8 rows, 48 heads).
+# Its own peak within ATTN_CORE_PEAK_RATIO of one (Sq, Sk) f32 buffer;
+# the gradients of its first ATTN_CORE_HELD_ROWS rows against
+# _sdpa_full's under autograd by relative RMS: f32 at 1e-5; bf16 at the
+# bf16 limit of the train parity tests, 2e-2 (a gradient rounded to bf16
+# from f32 sums in another order, or from a bf16 GEMM against an f32
+# one, lands on the other bf16 neighbour: dv read 4.2e-4 and 4.7e-4 on
+# the card, both paths 2.3e-3 from the f32 gradient of the same values)
+ATTN_CORE_CELLS = (("qwen3-8b", 16), ("dbrx-132b", 8))
+ATTN_CORE_PEAK_RATIO = 1.3
+ATTN_CORE_HELD_ROWS = 2
+ATTN_CORE_RMS = {torch.float32: 1e-5, torch.bfloat16: 2e-2}
+# olmoe's f64 forward and decode on the card, this many times in one
+# process, each against the one CPU result at F64_TOL
+MOE_F64_REPS = 10
 # 4 CPU ranks (gloo) on a 2 x 2 mesh at full width, cut to 2 layers, f64:
 # one train step (remat off: it changes no value and costs a forward)
 # held to the same step on one rank without a mesh at MESH_CPU_RTOL,
@@ -1679,25 +1713,44 @@ def moe_card_vs_cpu(arch, n_layers) -> dict:
     ``decode_step`` calls and one ``forward`` on the card against the
     same port functions on the CPU on the same f32 masters, in f64 and
     in f32 (TF32 off), every MoE call's picked experts equal (card and
-    CPU, f32 and f64).  f64 is held elementwise at ``F64_TOL``; f32 by
-    relative RMS within ``F32_GAP_RATIO`` times the CPU's f32 error
-    (its f32 logits against its f64 ones).  (Decode differs from forward
-    by the reference's design: a step's group is the batch, so its
-    capacity is 1; the gap is reported.)"""
+    CPU, f32 and f64).  f64 is held elementwise at ``F64_TOL``, the card
+    side run ``MOE_F64_REPS`` times in this process against the one CPU
+    result (one run of five once read an f32-sized gap here; a failing
+    reading adds ``moe_f64_ops``' comparison op by op); f32 by relative
+    RMS within ``F32_GAP_RATIO`` times the CPU's f32 error (its f32
+    logits against its f64 ones).  (Decode differs from forward by the
+    reference's design: a step's group is the batch, so its capacity is
+    1; the gap is reported.)"""
     cfg = dataclasses.replace(get_arch(arch), n_layers=n_layers)
     masters = cut_params(cfg, 1)
     host = tree_map(lambda a: a.cpu(), masters)
     toks = decode_tokens(cfg)
-    runs, routes = {}, []
-    for name in ("float64", "float32"):
+    routes = []
+
+    def run(name, where):
         c = dataclasses.replace(cfg, dtype=name)
-        for where, p, t in (("card", masters, toks),
-                            ("cpu", host, toks.cpu())):
-            p = M._cast(p, DTYPES[name])
-            got, r = routed(lambda: decode_and_forward(c, p, t))
-            runs[name, where] = [a.cpu() for a in got]
-            routes.append(r)
-            del p
+        p = M._cast(masters if where == "card" else host, DTYPES[name])
+        t = toks if where == "card" else toks.cpu()
+        got, r = routed(lambda: decode_and_forward(c, p, t))
+        routes.append(r)
+        return [a.cpu() for a in got]
+
+    runs = {("float64", "cpu"): run("float64", "cpu")}
+    f64 = {"decode": [], "forward": []}
+    for rep in range(MOE_F64_REPS):
+        card = run("float64", "card")
+        runs.setdefault(("float64", "card"), card)
+        for what, got, want in zip(f64, card, runs["float64", "cpu"]):
+            try:
+                f64[what].append(hold(
+                    f"{arch} {what} card vs cpu float64, rep {rep}", got,
+                    want, F64_TOL))
+            except AssertionError as e:
+                raise AssertionError(
+                    f"{e}; readings so far {f64}; op by op "
+                    f"{moe_f64_ops(cfg, masters, host, toks)}") from e
+    for where in ("card", "cpu"):
+        runs["float32", where] = run("float32", where)
     if not all(len(r) == len(routes[0]) and all(
             torch.equal(a, b) for a, b in zip(r, routes[0]))
             for r in routes):
@@ -1709,9 +1762,8 @@ def moe_card_vs_cpu(arch, n_layers) -> dict:
            "tokens": toks.shape[1], "moe_calls": len(routes[0]),
            "routes_equal": True}
     for i, what in enumerate(("decode", "forward")):
-        card, cpu = runs["float64", "card"][i], runs["float64", "cpu"][i]
-        r64 = {"max_abs_err": hold(f"{arch} {what} card vs cpu float64",
-                                   card, cpu, F64_TOL), "tol": F64_TOL}
+        r64 = {"max_abs_err": max(f64[what]), "reps": MOE_F64_REPS,
+               "max_abs_err_by_rep": f64[what], "tol": F64_TOL}
         card, cpu = runs["float32", "card"][i], runs["float32", "cpu"][i]
         error = rel_rms(cpu, runs["float64", "cpu"][i])
         r32 = {"rel_rms": rel_rms(card, cpu), "error": error,
@@ -1726,6 +1778,25 @@ def moe_card_vs_cpu(arch, n_layers) -> dict:
     out["decode_vs_forward_max_abs"] = float((dec - full).abs().max())
     out["max_abs_logit"] = float(full.abs().max())
     return out
+
+
+def moe_f64_ops(cfg, masters, host, toks) -> dict:
+    """The f64 forward of ``cfg`` op by op on the card against the CPU
+    (``tools/moe_f64_probe.py``'s recording: each op's output keyed by
+    its layer, MoE stage, name, shape and count): the ops whose outputs
+    part by more than 1e-12 of their scale, first ones first."""
+    sys.path.insert(0, str(ROOT / "tools"))
+    import moe_f64_probe as P
+    c = dataclasses.replace(cfg, dtype="float64")
+    stages = P._Stages()
+    with stages.installed(), P._Record(stages) as want:
+        M.forward(c, M._cast(host, torch.float64), {"tokens": toks.cpu()})
+    stages.layer = -1
+    with stages.installed(), P._Record(stages, want.ops) as got:
+        M.forward(c, M._cast(masters, torch.float64), {"tokens": toks})
+    return {"ops": len(got.ops), "ops_differing": len(got.diffs),
+            "first_differing": got.diffs[:8],
+            "unmatched": got.unmatched[:8]}
 
 
 def moe_layer_card_vs_cpu(arch) -> dict:
@@ -2160,6 +2231,92 @@ def train_card_vs_cpu(arch) -> dict:
             "wall_s": wall}
 
 
+def attention_core_probe() -> dict:
+    """``layers.attention_core`` (the model's attention over whole
+    sequences) forward and backward on the card at each of
+    ``ATTN_CORE_CELLS``' rank shapes in bf16, from a random cotangent:
+    its own peak (``max_memory_allocated`` less what was allocated
+    before the call) within ``ATTN_CORE_PEAK_RATIO`` of one (Sq, Sk) f32
+    buffer, and the gradients of its first ``ATTN_CORE_HELD_ROWS`` rows
+    against ``_sdpa_full``'s under autograd on those rows, in bf16 and
+    in f32, by relative RMS within ``ATTN_CORE_RMS``; each with its
+    CUDA-event ms (the plain path only on those rows: at the whole rank
+    it holds three buffers, more than the card)."""
+    gen = torch.Generator(device="cuda").manual_seed(4)
+    S = SHAPES["train_4k"].seq_len
+    n = ATTN_CORE_HELD_ROWS
+    out = {"entry": "repro_torch.models.layers.attention_core",
+           "plain": "repro_torch.models.layers._sdpa_full (autograd)",
+           "rows_per_chunk": L.ATTN_CORE_ROWS, "cells": {}}
+
+    def fwd_bwd(fn, q, k, v, dout):
+        a, b = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+        a.record()
+        grads = torch.autograd.grad(fn(q, k, v, True), (q, k, v), dout)
+        b.record()
+        torch.cuda.synchronize()
+        return grads, a.elapsed_time(b)
+
+    for arch, rows in ATTN_CORE_CELLS:
+        cfg = get_arch(arch)
+        K, dh = cfg.n_kv_heads, cfg.head_dim
+        G = cfg.n_heads // K
+        shapes = ((rows, S, K, G, dh), (rows, S, K, dh), (rows, S, K, dh),
+                  (rows, S, K, G, dh))
+        q, k, v, dout = (torch.randn(sh, generator=gen, device="cuda").to(
+            torch.bfloat16) for sh in shapes)
+        for t in (q, k, v):
+            t.requires_grad_()
+        buffer = rows * cfg.n_heads * S * S * 4
+        torch.cuda.synchronize()
+        torch.cuda.empty_cache()
+        before = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        got, ms = fwd_bwd(L.attention_core, q, k, v, dout)
+        peak = torch.cuda.max_memory_allocated() - before
+        rec = {"shape_q": list(shapes[0]), "buffer_bytes": buffer,
+               "own_peak_bytes": peak, "peak_over_buffer": peak / buffer,
+               "limit": ATTN_CORE_PEAK_RATIO, "ms": ms}
+        if not peak <= ATTN_CORE_PEAK_RATIO * buffer:
+            raise AssertionError(f"attention core {arch}: peak {peak} "
+                                 f"bytes, one buffer {buffer}")
+        got = {torch.bfloat16: [g[:n] for g in got]}
+        torch.cuda.empty_cache()
+        # the plain path on the first rows in f32 (the bf16 values, held
+        # exactly) is the witness of both bf16 paths' own error
+        want = {}
+        for dt in (torch.float32, torch.bfloat16):
+            part = [t[:n].detach().to(dt).requires_grad_()
+                    for t in (q, k, v, dout)]
+            want[dt], plain_ms = fwd_bwd(L._sdpa_full, *part)
+            rec[str(dt).replace("torch.", "")] = {"rows": n,
+                                                  "plain_ms": plain_ms}
+        part = [t[:n].detach().float().requires_grad_()
+                for t in (q, k, v, dout)]
+        got[torch.float32], rec["float32"]["ms"] = fwd_bwd(
+            L.attention_core, *part)
+        names = ("dq", "dk", "dv")
+        for dt in (torch.float32, torch.bfloat16):
+            key = str(dt).replace("torch.", "")
+            rms = {m: rel_rms(g, w) for m, g, w in
+                   zip(names, got[dt], want[dt])}
+            rec[key].update(rel_rms=rms, limit=ATTN_CORE_RMS[dt])
+            if dt == torch.bfloat16:
+                rec[key]["error_against_f32"] = {
+                    side: {m: rel_rms(g, w) for m, g, w in
+                           zip(names, grads, want[torch.float32])}
+                    for side, grads in (("core", got[dt]),
+                                        ("plain", want[dt]))}
+            if not max(rms.values()) <= ATTN_CORE_RMS[dt]:
+                raise AssertionError(f"attention core {arch} {key}: "
+                                     f"gradients {rms} against autograd")
+        del want, part
+        out["cells"][arch] = rec
+        del q, k, v, dout, got
+        torch.cuda.empty_cache()
+    return out
+
+
 def phase_train(drive, paths) -> dict:
     """The training path of ``python -m repro_torch.launch.train`` at
     qwen2-0.5b's full size: ``init_state``, the synthetic pipeline,
@@ -2244,6 +2401,7 @@ def phase_train(drive, paths) -> dict:
     for arch in TRAIN_PARITY:
         out["card_vs_cpu"][arch] = train_card_vs_cpu(arch)
         torch.cuda.empty_cache()
+    out["attention_core"] = attention_core_probe()
     out["phase_s"] = time.perf_counter() - t_phase
     return out
 
@@ -2396,14 +2554,17 @@ print(json.dumps({"launcher_step": D.step_memory(
 def mesh_dryrun(launcher) -> dict:
     """``launch/dryrun.py``'s ``run_cell`` on each of ``DRYRUN_CELLS`` at
     full size, in a process of its own that sees no card (its fake group
-    must not meet this process's); every rank's state under the card's
-    memory, and no all-gather in a train cell as large as one rank's
-    (B, S, V) f32 logits gathered over the vocabulary.  Each cell's peak
-    (state and activations) is reported against the card's memory, not
-    asserted.  Then ``step_memory`` of ``launcher``'s own step (the same
-    cell on a (1, 1) mesh over meta tensors) against the bytes the card
-    allocated for it: the launcher's peak less what was allocated before
-    it began, within ``DRYRUN_PEAK_RATIO``."""
+    must not meet this process's): every rank's peak (state and
+    activations) under ``DRYRUN_CARD_SHARE`` of the card's memory; in a
+    train cell no all-gather as large as one rank's (B, S, V) f32 logits
+    gathered over the vocabulary, and no all-reduce as large as the f32
+    embedding table or the largest stacked attention leaf (nor, where
+    ``REF_LARGEST_COLLECTIVE`` knows it, larger than the reference's
+    largest collective); each cell's largest all-reduce with its shape
+    and the op that issued it.  Then ``step_memory`` of ``launcher``'s
+    own step (the same cell on a (1, 1) mesh over meta tensors) against
+    the bytes the card allocated for it: the launcher's peak less what
+    was allocated before it began, within ``DRYRUN_PEAK_RATIO``."""
     env = dict(os.environ, CUDA_VISIBLE_DEVICES="")
     t0 = time.perf_counter()
     own = [launcher["arch"], launcher["seq"], launcher["batch"],
@@ -2427,9 +2588,13 @@ def mesh_dryrun(launcher) -> dict:
     for rec in recs:
         name = f"{rec['arch']}/{rec['shape']}/{rec['mesh']}"
         mem = rec["memory"]
-        if not mem["total_bytes"] < card:
-            raise AssertionError(f"dry run {name}: {mem['total_bytes']} "
-                                 f"bytes a rank, the card has {card}")
+        if not mem["peak_bytes"] < DRYRUN_CARD_SHARE * card:
+            raise AssertionError(f"dry run {name}: a rank's peak "
+                                 f"{mem['peak_bytes']} bytes, the card "
+                                 f"has {card}")
+        reduce = rec["collectives"].get("all_reduce", {})
+        largest = {k: reduce.get(f"max_result_{k}") for k in
+                   ("bytes", "shape", "op")}
         shape = SHAPES[rec["shape"]]
         if shape.kind == "train":
             cfg = get_arch(rec["arch"])
@@ -2440,10 +2605,26 @@ def mesh_dryrun(launcher) -> dict:
             if not gather.get("max_result_bytes", 0) < logits:
                 raise AssertionError(f"dry run {name}: an all-gather of "
                                      f"{gather} bytes, the logits {logits}")
+            # no gradient leaf is all-reduced whole: the largest
+            # all-reduce is under the f32 embedding table and under the
+            # largest stacked attention leaf, and under the reference's
+            # own largest collective where it is known
+            leaves = {"embed": cfg.vocab * cfg.d_model * 4,
+                      "attention": cfg.n_layers * cfg.d_model *
+                      cfg.n_heads * cfg.head_dim * 4,
+                      "reference": REF_LARGEST_COLLECTIVE.get(name)}
+            ref = leaves["reference"]
+            if not (largest["bytes"] < leaves["embed"]
+                    and largest["bytes"] < leaves["attention"]
+                    and (ref is None or largest["bytes"] <= ref)):
+                raise AssertionError(f"dry run {name}: an all-reduce of "
+                                     f"{largest}, against {leaves}")
+            largest["under"] = leaves
         cells[name] = {"ranks": rec["chips"], "memory": mem,
                        "peak_bytes": mem["peak_bytes"],
                        "temp_bytes": mem["temp_bytes"],
                        "peak_over_card": mem["peak_bytes"] > card,
+                       "largest_all_reduce": largest,
                        "flops_per_rank": rec["cost"]["flops"],
                        "collectives": rec["collectives"],
                        "wall_s": rec["lower_s"]}
@@ -2508,19 +2689,27 @@ def mesh_cpu_rank(rank, store, out, cases):
 def mesh_cpu_whole(work, arch):
     """The 4 ranks' results of ``arch``: rank 0's loss and grad norm, and
     every gradient and updated parameter put together whole from the
-    ranks' shards (on the host: the card holds the reference's)."""
-    whole = {}
+    ranks' shards (on the host: the card holds the reference's).  A
+    shard that two ranks hold (a replica over a mesh axis) is taken from
+    the first and held bit for bit against the other's; ``replicas_differ``
+    lists each (kind, leaf index, rank) where they part."""
+    whole, written = {"replicas_differ": []}, set()
     for rank in range(4):
         part = torch.load(work / f"{arch}.{rank}.pt")
         if rank == 0:
-            whole = {k: part[k] for k in ("loss", "grad_norm")}
+            whole.update({k: part[k] for k in ("loss", "grad_norm")})
         for key in ("grads", "params"):
             if rank == 0:
                 whole[key] = [torch.empty(shape, dtype=a.dtype)
                               for a, _, shape in part[key]]
-            for dst, (a, offset, _) in zip(whole[key], part[key]):
-                dst[tuple(slice(o, o + n) for o, n in zip(
-                    offset, a.shape))] = a
+            for i, (dst, (a, offset, _)) in enumerate(zip(whole[key],
+                                                          part[key])):
+                at = tuple(slice(o, o + n) for o, n in zip(offset, a.shape))
+                if (key, i, tuple(offset)) not in written:
+                    dst[at] = a
+                    written.add((key, i, tuple(offset)))
+                elif not torch.equal(dst[at], a):
+                    whole["replicas_differ"].append((key, i, rank))
         del part
     return whole
 
@@ -2548,7 +2737,9 @@ def mesh_cpu() -> dict:
     card-against-CPU step): the loss and every gradient against the
     card's, the grad norm and every updated parameter against AdamW on
     the card from the ranks' gradients, each held at ``MESH_CPU_RTOL``,
-    relative by norm."""
+    relative by norm; every shard two ranks hold, bit for bit between
+    them.  A failing hold reads a second card step
+    (:func:`mesh_cpu_again`)."""
     work = ROOT / "build" / "mesh_cpu"
     shutil.rmtree(work, ignore_errors=True)
     work.mkdir(parents=True)
@@ -2565,11 +2756,20 @@ def mesh_cpu() -> dict:
            "ranks_wall_s": ranks_s, "archs": {}}
     for arch, (cfg, pipe) in cases.items():
         t1 = time.perf_counter()
-        params = tree_map(lambda a: a.cuda(), mesh_cpu_masters(cfg))
-        loss, grads = loss_and_grads(cfg, params, pipe.device_batch(
-            0, "cuda"), remat=False)
+        masters, batch = mesh_cpu_masters(cfg), pipe.device_batch(0, "cuda")
+
+        def card_step():
+            params = tree_map(lambda a: a.cuda(), masters)
+            return (params, *loss_and_grads(cfg, params, batch,
+                                            remat=False))
+
+        params, loss, grads = card_step()
         g = mesh_cpu_whole(work, arch)
         names = leaf_names(params)
+        if g["replicas_differ"]:
+            raise AssertionError(
+                f"mesh cpu {arch}: ranks that hold one shard part on "
+                f"{[(k, names[i], r) for k, i, r in g['replicas_differ']]}")
         # the update from the ranks' own gradients: AdamW is elementwise,
         # so this holds the update on shards apart from the gradients'
         # sums (AdamW's first step divides a gradient near its eps by
@@ -2591,8 +2791,9 @@ def mesh_cpu() -> dict:
             a, b = a.double().cuda(), b.double()
             err = float((a - b).norm() / b.norm().clamp_min(1e-300))
             if not err <= MESH_CPU_RTOL:
+                again = mesh_cpu_again(card_step, grads, g, names)
                 raise AssertionError(f"mesh cpu {arch} {name}: relative "
-                                     f"error {err}")
+                                     f"error {err}; {again}")
             worst = max(worst, (err, name))
             peak = max(peak, (float((a - b).abs().max() / b.abs().max()
                                     .clamp_min(1e-300)), name))
@@ -2600,13 +2801,35 @@ def mesh_cpu() -> dict:
                               "loss": float(g["loss"]),
                               "grad_norm": float(g["grad_norm"]),
                               "leaves_held": len(pairs),
+                              "replicas_equal": True,
                               "rel_err": worst[0], "worst": worst[1],
                               "max_abs_over_max": peak[0],
                               "max_abs_worst": peak[1],
                               "one_rank_s": time.perf_counter() - t1}
-        del grads, new, g
+        del grads, new, g, masters, batch
         torch.cuda.empty_cache()
     shutil.rmtree(work)
+    return out
+
+
+def mesh_cpu_again(card_step, grads, g, names) -> dict:
+    """What a failing hold of ``mesh_cpu`` reads on a second card step
+    from the same masters and batch: whether its gradients equal the
+    first step's bit for bit, and each side's relative error against the
+    ranks' gradients, leaf by leaf where either is over the limit (the
+    ranks' replicas were already found equal): it tells a card that
+    gave two answers for one computation from ranks that gave another."""
+    _, _, again = card_step()
+    first, second = tree_leaves(grads), tree_leaves(again)
+    out = {"card_steps_equal": all(torch.equal(a, b)
+                                   for a, b in zip(first, second)),
+           "leaves": {}}
+    for name, a, b1, b2 in zip(names, g["grads"], first, second):
+        a = a.double().cuda()
+        errs = [float((a - b).norm() / b.norm().clamp_min(1e-300))
+                for b in (b1.double(), b2.double())]
+        if max(errs) > MESH_CPU_RTOL:
+            out["leaves"][name] = errs
     return out
 
 

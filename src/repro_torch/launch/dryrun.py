@@ -25,9 +25,10 @@ the most bytes of local tensors a rank holds at once over the step, and
 ``temp_bytes`` = peak less the arguments, the counterpart of XLA's
 ``temp_size_in_bytes``), ``cost.flops`` (the
 FLOPs of the rank's local ops, ``torch.utils.flop_counter``), and
-``collectives`` (per op kind: count, operand bytes, result bytes and
-the largest result, from ``CommDebugMode``), and ``lower_s``, the wall
-time of the step.
+``collectives`` (per op kind: count, operand bytes, result bytes, the
+largest result with its shape and the op or the line that issued it,
+and each result shape's count, from ``CommDebugMode``), and
+``lower_s``, the wall time of the step.
 
 The peak counts the step's allocations and frees as they happen, below
 DTensor: every new storage a rank's local op (a collective's result
@@ -41,6 +42,7 @@ from __future__ import annotations
 
 import argparse
 import json
+import sys
 import time
 import weakref
 from pathlib import Path
@@ -71,27 +73,57 @@ from .mesh import make_production_mesh
 class _Collectives(CommDebugMode):
     """``CommDebugMode`` that also adds up, per collective kind, the bytes
     of its tensor operands and of its result (the rank's own, as every
-    count here is) and the largest single result."""
+    count here is), and records the largest single result with its shape
+    and the op that issued it, and each result shape's count."""
 
     def __init__(self) -> None:
         super().__init__()
-        self.bytes: Dict[str, Dict[str, int]] = {}
+        self.bytes: Dict[str, Dict[str, Any]] = {}
 
     def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+        if getattr(func, "namespace", None) == "aten" and \
+                not any(issubclass(t, DTensor) for t in types):
+            # a rank's local op, never a collective: nothing to count
+            return func(*args, **(kwargs or {}))
         before = self.get_total_counts()
         out = super().__torch_dispatch__(func, types, args, kwargs)
         if out is not NotImplemented and self.get_total_counts() > before:
             rec = self.bytes.setdefault(
                 str(func.overloadpacket).split(".")[-1],
                 {"count": 0, "bytes": 0, "result_bytes": 0,
-                 "max_result_bytes": 0})
+                 "max_result_bytes": 0, "result_shapes": {}})
+            outs = out if isinstance(out, (list, tuple)) else [out]
             size = _nbytes([a for a in args if isinstance(a, torch.Tensor)])
-            res = _nbytes(out if isinstance(out, (list, tuple)) else [out])
+            res = _nbytes(outs)
+            shape = "x".join(map(str, outs[0].shape))
             rec["count"] += 1
             rec["bytes"] += size
             rec["result_bytes"] += res
-            rec["max_result_bytes"] = max(rec["max_result_bytes"], res)
+            rec["result_shapes"][shape] = rec["result_shapes"].get(
+                shape, 0) + 1
+            if res > rec["max_result_bytes"]:
+                rec.update(max_result_bytes=res, max_result_shape=shape,
+                           max_result_op=self._origin())
         return out
+
+    @staticmethod
+    def _origin() -> str:
+        """What issued the collective running now: the DTensor op being
+        dispatched (its ``op_call``), or an explicit ``redistribute``,
+        with the innermost line of the port on the stack (none for an op
+        of the backward pass)."""
+        op, ours, f = None, "", sys._getframe()
+        while f is not None:
+            code = f.f_code
+            if op is None and code.co_filename.endswith("_dispatch.py") \
+                    and "op_call" in f.f_locals:
+                op = str(f.f_locals["op_call"])
+            if not ours and "repro_torch" in code.co_filename and \
+                    not code.co_filename.endswith("dryrun.py"):
+                ours = f"{Path(code.co_filename).name}:{f.f_lineno} " \
+                    f"{code.co_name}"
+            f = f.f_back
+        return f"{op or 'redistribute'} at {ours or 'the backward pass'}"
 
 
 class _RankFlopMode(flop_counter._FlopCounterMode):

@@ -14,7 +14,12 @@ reference constrains it, with the same logical names: a no-op without a
 mesh, a DTensor redistribution under one; the constants a layer makes
 (positions, masks, aranges) are replicated there.  Attention over whole
 sequences, the MoE's routing and experts and Mamba-2's chunked scan run
-on each rank's shards (``sharding.local``), where they are local.  A
+on each rank's shards (``sharding.local``), where they are local;
+attention over whole sequences is :func:`attention_core`, the
+reference's ``_sdpa_full`` in chunks of query rows with a backward of
+its own that keeps one (Sq, Sk) f32 buffer, as the reference's compiled
+step does (:func:`_sdpa_full` and :func:`_sdpa_chunked` stay, the plain
+twins of the reference's two functions).  A
 cached decode writes its token's k and v into the cache in place,
 under a mesh into the shard that owns the position.
 """
@@ -24,16 +29,22 @@ import math
 from typing import Dict, Optional, Tuple
 
 import torch
+from torch.autograd.function import once_differentiable
 
 from ..configs.base import ModelConfig
 from .sharding import index_copy_, local, pin, replicate, shard, view
 
 Params = Dict[str, torch.Tensor]
 
-# Query-chunk size above which attention switches to the memory-bounded
-# online-softmax path (the reference's values).
+# The reference's switch to its query-chunked path (``_sdpa_chunked``,
+# kept here as its twin); the model runs ``attention_core`` at every
+# length, the same algebra row by row.
 ATTN_CHUNK_THRESHOLD = 8192
 ATTN_CHUNK = 2048
+# Query rows a chunk of the attention core (:func:`attention_core`): 256
+# keep a chunk's f32 scores at a sixteenth of its (Sq, Sk) buffer at S
+# 4096, so the chunk's temporaries stay a few GB beside it.
+ATTN_CORE_ROWS = 256
 # mask value of a score that must get no weight
 MASKED = -1e30
 # MoE dispatch group size + capacity factor (GShard-style), and the
@@ -164,6 +175,153 @@ def _sdpa_chunked(q, k, v, causal: bool) -> torch.Tensor:
     return torch.cat(outs, dim=1)
 
 
+def _rows_of(x: torch.Tensor, r0: int, r1: int) -> torch.Tensor:
+    """Rows r0:r1 of a (B,S,K,G,dh) tensor as (B·K, G·c, dh): the row
+    operand of a batched product over the (batch, KV head) pairs."""
+    B, _, K, G, dh = x.shape
+    return x[:, r0:r1].permute(0, 2, 3, 1, 4).reshape(B * K, G * (r1 - r0),
+                                                     dh)
+
+
+def _to_rows(y: torch.Tensor, B: int, K: int, G: int) -> torch.Tensor:
+    """(B·K, G·c, dh) back to (B,c,K,G,dh)."""
+    return y.view(B, K, G, -1, y.shape[-1]).permute(0, 3, 1, 2, 4)
+
+
+class _Keys:
+    """A call's operands that every chunk of query rows shares: k in
+    f32 as (B·K, dh, S), v as (B·K, S, dh), and where the attention is
+    causal the (S, S) mask of the scores that get no weight."""
+
+    def __init__(self, k: torch.Tensor, v: torch.Tensor,
+                 causal: bool) -> None:
+        B, S, K, dh = k.shape
+        self.kt = _f32(k).permute(0, 2, 3, 1).reshape(B * K, dh, S)
+        self.v = v.permute(0, 2, 1, 3).reshape(B * K, S, dh)
+        self.masked = None
+        if causal:
+            pos = torch.arange(S, device=k.device)
+            self.masked = pos[:, None] < pos[None, :]
+        self.scale = 1.0 / math.sqrt(dh)
+
+
+def _core_rows(q: torch.Tensor, keys: _Keys, r0: int, r1: int,
+               w: torch.Tensor) -> torch.Tensor:
+    """Query rows r0:r1 of q (B,S,K,G,dh), as :func:`_sdpa_full`
+    computes them: the f32 scores of ``q * scale`` and k, the mask, the
+    softmax into ``w`` (B,K,G,c,S), the weights cast to v's dtype times
+    v.  Returns the rows' output, (B,c,K,G,dh)."""
+    B, _, K, G, _ = q.shape
+    scores = torch.bmm(_f32(_rows_of(q, r0, r1)) * keys.scale,
+                       keys.kt).view(w.shape)
+    if keys.masked is not None:
+        scores.masked_fill_(keys.masked[r0:r1], MASKED)
+    torch.ops.aten._softmax.out(scores, -1, False, out=w)
+    del scores
+    wv = w.to(keys.v.dtype).view(B * K, -1, w.shape[-1])
+    return _to_rows(torch.bmm(wv, keys.v), B, K, G)
+
+
+class _AttentionCore(torch.autograd.Function):
+    """:func:`_sdpa_full`'s algebra in chunks of ``ATTN_CORE_ROWS`` query
+    rows, whose backward holds one (B,K,G,S,S) f32 buffer, the softmax
+    weights, as XLA's fused step does; eager autograd of
+    :func:`_sdpa_full` holds three at the softmax's backward (the saved
+    weights, their gradient and the gradient it makes) and more in
+    ``masked_fill``'s backward and the casts.
+
+    The forward writes each chunk's weights into the buffer and saves it
+    with q, k and v.  The backward walks the same chunks: v's gradient
+    from the weights cast as in the forward; the weights' gradient
+    ``dout · vᵀ`` in v's dtype, then in f32 (what autograd of the cast
+    computes); the softmax's gradient ``w * (dw - sum(dw * w))``,
+    written over the chunk's weights; q's and k's gradients from it.  A
+    masked score has weight 0 exactly (``MASKED`` is -1e30), so its
+    gradient is 0 with no mask."""
+
+    @staticmethod
+    def forward(ctx, q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                causal: bool) -> torch.Tensor:
+        B, S, K, G, _ = q.shape
+        buf = torch.empty(B * K * G * S * S, device=q.device,
+                          dtype=torch.promote_types(q.dtype, torch.float32))
+        out = _core(q, k, v, causal, buf)
+        ctx.save_for_backward(q, k, v, buf)
+        return out
+
+    @staticmethod
+    @once_differentiable
+    def backward(ctx, dout: torch.Tensor):
+        q, k, v, buf = ctx.saved_tensors
+        B, _, K, G, _ = q.shape
+        keys = _Keys(k, v, False)
+        acc = keys.kt.dtype
+        vt, kf = keys.v.transpose(1, 2), keys.kt.transpose(1, 2)
+        dq = torch.empty_like(q)
+        dk = torch.zeros(kf.shape, dtype=acc, device=k.device)
+        dv = torch.zeros(kf.shape, dtype=acc, device=v.device)
+        for r0, r1, w in _core_chunks(buf, q):
+            w = w.view(B * K, -1, w.shape[-1])
+            do = _rows_of(dout, r0, r1)
+            # the weights rounded to v's dtype, their products summed in
+            # f32 over every chunk and rounded once, as one product would
+            dv += torch.bmm(w.to(v.dtype).to(acc).transpose(1, 2),
+                            do.to(acc))
+            dw = torch.bmm(do, vt).to(acc)
+            dot = (dw * w).sum(dim=-1, keepdim=True)
+            w.mul_(dw.sub_(dot))                     # the scores' gradient
+            del dw
+            dq[:, r0:r1] = _to_rows(torch.bmm(w, kf) * keys.scale,
+                                    B, K, G).to(q.dtype)
+            dk += torch.bmm(w.transpose(1, 2),
+                            _f32(_rows_of(q, r0, r1)) * keys.scale)
+
+        def heads(t, like):
+            return t.view(B, K, *t.shape[1:]).permute(0, 2, 1, 3).to(
+                like.dtype)
+
+        return dq, heads(dk, k), heads(dv, v), None
+
+
+def _core_chunks(buf: Optional[torch.Tensor], q: torch.Tensor):
+    """(first row, end row, the chunk's (B,K,G,c,S) view of ``buf``) for
+    each chunk of ``ATTN_CORE_ROWS`` rows of q (B,S,K,G,dh); ``buf``
+    holds them one after another, each chunk contiguous.  With ``buf``
+    None each view is a new tensor."""
+    B, S, K, G, _ = q.shape
+    for r0 in range(0, S, ATTN_CORE_ROWS):
+        r1 = min(r0 + ATTN_CORE_ROWS, S)
+        shape = (B, K, G, r1 - r0, S)
+        w = torch.empty(shape, dtype=torch.promote_types(
+            q.dtype, torch.float32), device=q.device) if buf is None \
+            else buf[B * K * G * r0 * S:B * K * G * r1 * S].view(shape)
+        yield r0, r1, w
+
+
+def _core(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, causal: bool,
+          buf: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """The output, chunk by chunk (:func:`_core_rows`), each chunk's
+    weights left in ``buf`` where given (:func:`_core_chunks`)."""
+    keys = _Keys(k, v, causal)
+    out = torch.empty(q.shape, dtype=v.dtype, device=q.device)
+    for r0, r1, w in _core_chunks(buf, q):
+        out[:, r0:r1] = _core_rows(q, keys, r0, r1, w)
+    return out
+
+
+def attention_core(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                   causal: bool) -> torch.Tensor:
+    """Attention over whole sequences, q (B,S,K,G,dh), k/v (B,S,K,dh) ->
+    (B,S,K,G,dh): :func:`_sdpa_full`'s values (and :func:`_sdpa_chunked`'s,
+    the same algebra row by row).  Where a gradient will be taken
+    (:class:`_AttentionCore`) its backward holds one (Sq, Sk) f32 buffer;
+    otherwise the rows go chunk by chunk and nothing of (Sq, Sk) size is
+    kept: O(S · ``ATTN_CORE_ROWS``) score memory."""
+    if torch.is_grad_enabled() and any(t.requires_grad for t in (q, k, v)):
+        return _AttentionCore.apply(q, k, v, causal)
+    return _core(q, k, v, causal)
+
+
 def _project_heads(x: torch.Tensor, w: torch.Tensor,
                    heads: str) -> torch.Tensor:
     """x (B,S,D) · w (D,H,dh) -> (B,S,H,dh): the one (D, H·dh) product
@@ -236,10 +394,9 @@ def attention(cfg: ModelConfig, p: Params, x: torch.Tensor,
     else:
         # whole sequences per rank, the batch and the KV heads split:
         # attention is local to each rank's shards
-        fn = _sdpa_chunked if S > ATTN_CHUNK_THRESHOLD and \
-            S % ATTN_CHUNK == 0 else _sdpa_full
         heads = ("batch", None, "kv_heads", None)
-        out = local(lambda q_, k_, v_: fn(q_, k_, v_, cfg.causal),
+        out = local(lambda q_, k_, v_: attention_core(q_, k_, v_,
+                                                      cfg.causal),
                     (qg.shape, heads + (None,)), (qg, heads + (None,)),
                     (k, heads), (v, heads))
 

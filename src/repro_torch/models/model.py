@@ -27,14 +27,17 @@ import math
 from typing import Any, Callable, Dict, List, Tuple, Union
 
 import torch
-from torch.distributed.tensor import DTensor, Replicate, Shard
+from torch.distributed.tensor import DTensor, Partial, Replicate, Shard
+from torch.distributed.tensor._utils import \
+    compute_local_shape_and_global_offset
+from torch.autograd.function import once_differentiable
 from torch.utils.checkpoint import checkpoint
 
 from ..configs.base import ModelConfig
 from .layers import _f32, attention, mamba1, mamba2, mlp, moe, rms_norm
 from .params import ParamSpec, tree_map
-from .sharding import active, local_shard, partial_over_batch, \
-    placements, replicate, shard, spec_for, use_sharding
+from .sharding import active, local_shard, placements, replicate, \
+    shard, spec_for, use_sharding
 
 Tree = Dict[str, Any]
 
@@ -71,10 +74,13 @@ class _EmbedLookup(torch.autograd.Function):
     adds them in the table's dtype, which on a bf16 table rounds after
     every repeated token where the reference rounds once.
 
-    Under a mesh each rank adds its own rows (the batch shard) into a
-    whole table, and the tables are summed and split by vocabulary like
-    the parameter (``shard(dtable, "vocab", None)``, as the reference):
-    one table-sized reduce."""
+    Under a mesh the gradient is laid out as the table is (its
+    vocabulary split): each rank takes the batch's rows, whole over the
+    mesh axes that split the vocabulary, adds those of its own
+    vocabulary rows into its (V / shards, D) part of the table, and the
+    parts are summed over the axes that split the batch.  That sum is
+    one vocabulary shard a rank, as the reference's partitioner reduces
+    it; no rank builds the whole table."""
 
     @staticmethod
     def forward(ctx, table: torch.Tensor,
@@ -82,6 +88,8 @@ class _EmbedLookup(torch.autograd.Function):
         ctx.save_for_backward(tokens)
         ctx.table_shape, ctx.table_dtype = table.shape, table.dtype
         ctx.sharding = active()
+        ctx.layout = tuple(table.placements) \
+            if isinstance(table, DTensor) else None
         return table.index_select(0, tokens.reshape(-1)).reshape(
             *tokens.shape, table.shape[1])
 
@@ -90,16 +98,27 @@ class _EmbedLookup(torch.autograd.Function):
         tokens, = ctx.saved_tensors
         V, D = ctx.table_shape
         acc = torch.promote_types(ctx.table_dtype, torch.float32)
-        if isinstance(g, DTensor):
-            with use_sharding(ctx.sharding.mesh, ctx.sharding.rules):
-                rows = placements(g.device_mesh, spec_for(
-                    ("batch", "seq", None), g.shape))
-                g = g.redistribute(g.device_mesh, rows)
-                tokens = tokens.redistribute(g.device_mesh, rows)
-                dtable = partial_over_batch(_add_rows(
-                    V, D, acc, tokens.to_local(), g.to_local()), g)
-                return shard(dtable, "vocab", None).to(ctx.table_dtype), None
-        return _add_rows(V, D, acc, tokens, g).to(ctx.table_dtype), None
+        if not isinstance(g, DTensor):
+            return _add_rows(V, D, acc, tokens, g).to(ctx.table_dtype), None
+        mesh, vocab = g.device_mesh, ctx.layout
+        with use_sharding(ctx.sharding.mesh, ctx.sharding.rules):
+            batch = placements(mesh, spec_for(("batch", "seq", None),
+                                              g.shape))
+        rows = tuple(Replicate() if isinstance(v, Shard) else b
+                     for b, v in zip(batch, vocab))
+        g = g.redistribute(mesh, rows).to_local()
+        tokens = tokens.redistribute(mesh, rows).to_local()
+        (n, _), (first, _) = compute_local_shape_and_global_offset(
+            (V, D), mesh, vocab)
+        # this rank's vocabulary rows; the others' go to a spare row n
+        at = tokens - first
+        at = torch.where((at >= 0) & (at < n), at, n)
+        part = _add_rows(n + 1, D, acc, at, g)[:n]
+        dtable = DTensor.from_local(
+            part, mesh, [Partial() if isinstance(r, Shard) else v
+                         for r, v in zip(rows, vocab)],
+            run_check=False, shape=(V, D), stride=(D, 1))
+        return dtable.redistribute(mesh, vocab).to(ctx.table_dtype), None
 
 
 def _add_rows(V: int, D: int, acc: torch.dtype, tokens: torch.Tensor,
@@ -232,14 +251,20 @@ class _TokenNLL(torch.autograd.Function):
     logit comes from the shard that holds it.  The reference takes gold
     by a one-hot contraction for that; a one-hot row has one nonzero
     term, so the gather is the same number, without a second (B, S, V)
-    f32 tensor (5 GB at qwen2-0.5b, B 2, S 4096)."""
+    f32 tensor (5 GB at qwen2-0.5b, B 2, S 4096).  The exp runs in place
+    in the forward, and the backward writes the gradient over the saved
+    logits (the caller must not read them after the backward;
+    ``loss_fn``'s are its own): at the train step's peak, which is
+    here, the head holds the logits and one more (B, S, V) f32 tensor,
+    where it held two more."""
 
     @staticmethod
     def forward(ctx, logits: torch.Tensor,
                 labels: torch.Tensor) -> torch.Tensor:
         m = shard(logits.amax(-1, keepdim=True), "batch", "seq", None)
         m = m.masked_fill(m.abs() == math.inf, 0)
-        total = shard(torch.exp(logits - m).sum(-1), "batch", "seq")
+        # exp in place: one (B, S, V) f32 temporary beside the logits
+        total = shard((logits - m).exp_().sum(-1), "batch", "seq")
         logz = torch.log(total) + m[..., 0]
         # a gather from the split vocabulary is summed over its shards
         # before the index axis goes: DTensor cannot reduce it after
@@ -249,9 +274,12 @@ class _TokenNLL(torch.autograd.Function):
         return logz - gold
 
     @staticmethod
+    @once_differentiable
     def backward(ctx, g: torch.Tensor):
         logits, labels, logz = ctx.saved_tensors
-        d = g[..., None] * torch.exp(logits - logz[..., None])
+        # written over the saved logits, which nothing reads after: the
+        # gradient needs no (B, S, V) f32 tensor of its own
+        d = logits.sub_(logz[..., None]).exp_().mul_(g[..., None])
         return _sub_at_labels(d, labels, g), None
 
 

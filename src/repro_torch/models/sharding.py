@@ -348,16 +348,6 @@ def full(x: torch.Tensor) -> torch.Tensor:
     return x.full_tensor() if isinstance(x, DTensor) else x
 
 
-def partial_over_batch(local: torch.Tensor, like: DTensor) -> DTensor:
-    """``local``, each rank's sum over its own rows of ``like`` (a
-    batch-sharded DTensor), as a DTensor that is a pending sum over the
-    mesh axes ``like`` is sharded on and replicated over the others."""
-    return DTensor.from_local(
-        local, like.device_mesh,
-        [Partial() if isinstance(p, Shard) else Replicate()
-         for p in like.placements], run_check=False)
-
-
 def local_shard(x: DTensor, dim: int) -> Tuple[torch.Tensor, int]:
     """This rank's shard of ``x`` (a view: writes go into ``x``) and the
     global index of its first entry along ``dim``."""

@@ -18,7 +18,7 @@ from __future__ import annotations
 from typing import Callable, Dict, Optional, Tuple
 
 import torch
-from torch.distributed.tensor import DTensor
+from torch.distributed.tensor import DTensor, Partial, Replicate, Shard
 
 from ..configs.base import ModelConfig, ShapeConfig
 from ..models import model as M
@@ -51,10 +51,20 @@ def _value_and_grad(cfg: ModelConfig, params: Tree, batch: Tree,
 def _like(g: torch.Tensor, p: torch.Tensor) -> torch.Tensor:
     """The gradient ``g`` laid out like its parameter ``p``: a DTensor
     gradient that is ``Partial`` (summed over the batch's shards) or
-    otherwise placed is redistributed to ``p``'s placements."""
-    if isinstance(g, DTensor) and g.placements != p.placements:
-        return g.redistribute(p.device_mesh, p.placements)
-    return g
+    otherwise placed is redistributed to ``p``'s placements.  It is
+    split first (a local chunk where it is whole, a reduce-scatter where
+    it is a pending sum) and then summed where a sum is still pending,
+    so every sum runs on the parameter's shard, as the reference's
+    partitioner reduces a gradient, never on the whole leaf."""
+    if not isinstance(g, DTensor) or g.placements == p.placements:
+        return g
+    mesh, want = p.device_mesh, tuple(p.placements)
+    for first in (Replicate, Partial):
+        step = tuple(w if isinstance(h, first) and isinstance(w, Shard)
+                     else h for h, w in zip(g.placements, want))
+        if step != tuple(g.placements):
+            g = g.redistribute(mesh, step)
+    return g if tuple(g.placements) == want else g.redistribute(mesh, want)
 
 
 def loss_and_grads(cfg: ModelConfig, params: Tree, batch: Tree,
