@@ -107,7 +107,8 @@ sharded checkpoint (every leaf bit-equal, the seconds of each, the
 save's device peak within 64 MiB of the bytes allocated before it); the
 loss head against ``torch.logsumexp`` and
 ``gather`` bit for bit; the dry run (``launch/dryrun.py``) at full size
-on meta tensors in a process that sees no card (dbrx-132b decode_32k on
+on meta tensors in a process that sees no card, started once the train
+phase's timed and profiled steps are taken (dbrx-132b decode_32k on
 the 16 x 16 pod, dbrx-132b train_4k on the 2 x 16 x 16 multi-pod,
 qwen3-8b train_4k on the pod: each rank's peak with its activations
 under 0.9 of the card's memory, no all-gather of a train cell's logits,
@@ -120,7 +121,13 @@ allocated for it
 (within 0.85-1.15); and 4 CPU ranks (gloo,
 2 x 2) at full width, 2 layers, f64, one train step of qwen2-0.5b and
 olmoe-1b-7b held to the same step on one rank (the card, no mesh) at
-1e-10 relative by norm.
+1e-10 relative by norm, the qwen2-0.5b ranks under the op recorder
+(``repro_torch.launch.oplog``) in every run: the line gives their
+result's digest beside the usual one, each rank's op count and the
+recorder's seconds, and a failing hold first prints, on a line of its
+own, where a second recorded spawn of the ranks parts from the first,
+op by op (the op, its site, whether its inputs agreed, the size of the
+difference).  olmoe's line gives the digests of its CPU f64 side.
 bf16 attention must go to the tensor-core kernel and f32 to the
 CUDA-core one, bf16 with q, k and v scaled by 8 must hold the elementwise
 bf16 tolerance, and each attention case is timed warm and with the L2
@@ -145,7 +152,10 @@ submit.  Any failure raises, and the exit code is not 0;
 without a CUDA device it exits with 2 before printing any result.
 """
 import asyncio
+import contextlib
 import dataclasses
+import gzip
+import hashlib
 import json
 import math
 import os
@@ -196,6 +206,7 @@ from repro_torch.launch.serve import build_engine  # noqa: E402
 from repro_torch.launch.train import (init_state, resume,  # noqa: E402
                                       start_group, train_loop)
 from repro_torch.launch.mesh import make_mesh  # noqa: E402
+from repro_torch.launch.oplog import OpLog, first_parting  # noqa: E402
 from repro_torch.models.sharding import full, use_sharding  # noqa: E402
 from repro_torch.train.step import (batch_shardings,  # noqa: E402
                                     opt_shardings)
@@ -353,6 +364,14 @@ MOE_F64_REPS = 10
 MESH_CPU_ARCHS = ("qwen2-0.5b", "olmoe-1b-7b")
 MESH_CPU_LAYERS, MESH_CPU_BATCH, MESH_CPU_SEQ = 2, 4, 256
 MESH_CPU_RTOL = 1e-10
+# the case whose ranks run under the op recorder in every run, and the
+# digest of its ranks' result (loss, gradients, updated parameters) on
+# every run so far, by torch version (the card machine's host)
+MESH_CPU_RECORDED = "qwen2-0.5b"
+MESH_CPU_USUAL_DIGEST = {"2.11.0+cu128": "8cbb086091f55e48"}
+# this process's environment before any phase ran, for ranks spawned from
+# a fresh interpreter
+ENV_AT_START = dict(os.environ)
 
 
 def emit(obj) -> None:
@@ -1716,7 +1735,10 @@ def moe_card_vs_cpu(arch, n_layers) -> dict:
     CPU, f32 and f64).  f64 is held elementwise at ``F64_TOL``, the card
     side run ``MOE_F64_REPS`` times in this process against the one CPU
     result (one run of five once read an f32-sized gap here; a failing
-    reading adds ``moe_f64_ops``' comparison op by op); f32 by relative
+    reading adds ``moe_f64_ops``' comparison op by op), the CPU side's
+    digests printed (``cpu_float64_digest``: its decode and forward
+    logits and its picks, hashed as ``tools/moe_f64_probe.py
+    --cpu-processes`` hashes them); f32 by relative
     RMS within ``F32_GAP_RATIO`` times the CPU's f32 error (its f32
     logits against its f64 ones).  (Decode differs from forward by the
     reference's design: a step's group is the batch, so its capacity is
@@ -1757,10 +1779,14 @@ def moe_card_vs_cpu(arch, n_layers) -> dict:
         raise AssertionError(f"{arch}: the card and the CPU, or f32 and "
                              f"f64, routed tokens to other experts")
     del masters
+    dec64, full64 = runs["float64", "cpu"]
     out = {"n_layers": n_layers, "d_model": cfg.d_model,
            "experts": cfg.n_experts, "top_k": cfg.top_k,
            "tokens": toks.shape[1], "moe_calls": len(routes[0]),
-           "routes_equal": True}
+           "routes_equal": True,
+           "cpu_float64_digest": {"decode": sha16([dec64]),
+                                  "forward": sha16([full64]),
+                                  "picks": sha16(routes[0])}}
     for i, what in enumerate(("decode", "forward")):
         r64 = {"max_abs_err": max(f64[what]), "reps": MOE_F64_REPS,
                "max_abs_err_by_rep": f64[what], "tol": F64_TOL}
@@ -1778,6 +1804,14 @@ def moe_card_vs_cpu(arch, n_layers) -> dict:
     out["decode_vs_forward_max_abs"] = float((dec - full).abs().max())
     out["max_abs_logit"] = float(full.abs().max())
     return out
+
+
+def sha16(ts) -> str:
+    """The first 16 hex digits of a SHA-256 over the tensors' bytes."""
+    h = hashlib.sha256()
+    for t in ts:
+        h.update(t.contiguous().numpy().tobytes())
+    return h.hexdigest()[:16]
 
 
 def moe_f64_ops(cfg, masters, host, toks) -> dict:
@@ -2317,14 +2351,15 @@ def attention_core_probe() -> dict:
     return out
 
 
-def phase_train(drive, paths) -> dict:
+def phase_train(drive, paths, then) -> dict:
     """The training path of ``python -m repro_torch.launch.train`` at
     qwen2-0.5b's full size: ``init_state``, the synthetic pipeline,
     ``make_train_step`` and ``train_loop``; ``TRAIN_STEPS`` steps timed
     with CUDA events after ``TRAIN_WARMUP`` (path ``train``), one more
-    under torch.profiler; every loss and grad norm finite; then the
-    restart at full size and one step of the card against the CPU at
-    full width for each of ``TRAIN_PARITY``."""
+    under torch.profiler; every loss and grad norm finite; then
+    ``then()`` (host work started there runs beside what follows, never
+    beside a timed step), the restart at full size and one step of the
+    card against the CPU at full width for each of ``TRAIN_PARITY``."""
     t_phase = time.perf_counter()
     cfg = get_arch(TRAIN_ARCH)
     seq = SHAPES["train_4k"].seq_len
@@ -2373,6 +2408,7 @@ def phase_train(drive, paths) -> dict:
     t0 = time.perf_counter()
     pipe.batch_for_step(0)
     batch_ms = (time.perf_counter() - t0) * 1e3
+    then()
     flops = train_flops(cfg, TRAIN_BATCH, seq)
     out = {"phase": "train", "entry": "repro_torch.launch.train "
            "(init_state, SyntheticTokenPipeline, make_train_step, "
@@ -2535,7 +2571,8 @@ def mesh_checkpoint(cfg, params, opt) -> dict:
 
 
 DRYRUN_SCRIPT = """
-import json, sys
+import json, sys, time
+t0 = time.perf_counter()
 sys.path.insert(0, sys.argv[1])
 import repro_torch.launch.dryrun as D
 from repro_torch.configs.base import ShapeConfig
@@ -2547,11 +2584,40 @@ D.fake_group(1)
 mesh = make_mesh((1, 1), ("data", "model"), "cpu")
 print(json.dumps({"launcher_step": D.step_memory(
     arch, ShapeConfig("train", seq, batch, "train"), mesh,
-    microbatch=micro)}), flush=True)
+    microbatch=micro), "process_s": time.perf_counter() - t0}), flush=True)
 """
 
 
-def mesh_dryrun(launcher) -> dict:
+def dryrun_start() -> dict:
+    """The process of :func:`mesh_dryrun`, started now (it is host work
+    on meta tensors, run beside the train phase's restart and parity
+    steps): the cells of ``DRYRUN_CELLS`` and the launcher's own step,
+    its output to files under the checkout's build/."""
+    work = ROOT / "build" / "dryrun"
+    shutil.rmtree(work, ignore_errors=True)
+    work.mkdir(parents=True)
+    own = [TRAIN_ARCH, SHAPES["train_4k"].seq_len, TRAIN_BATCH,
+           TRAIN_MICROBATCH]
+    with open(work / "out", "w") as out, open(work / "err", "w") as err:
+        proc = subprocess.Popen(
+            [sys.executable, "-c", DRYRUN_SCRIPT, str(ROOT / "src"),
+             json.dumps(DRYRUN_CELLS), json.dumps(own)], stdout=out,
+            stderr=err, env=dict(os.environ, CUDA_VISIBLE_DEVICES=""))
+    return {"proc": proc, "work": work, "own": own,
+            "t0": time.perf_counter()}
+
+
+def dryrun_wait(started) -> None:
+    """Waits for the process of :func:`dryrun_start` (``started``), before
+    the mesh launcher's steps, which are timed on the host clock: its
+    exit code and the seconds waited go into ``started``."""
+    t0 = time.perf_counter()
+    started["code"] = started["proc"].wait()
+    started["waited_s"] = time.perf_counter() - t0
+    started["started_to_read_s"] = time.perf_counter() - started["t0"]
+
+
+def mesh_dryrun(launcher, started) -> dict:
     """``launch/dryrun.py``'s ``run_cell`` on each of ``DRYRUN_CELLS`` at
     full size, in a process of its own that sees no card (its fake group
     must not meet this process's): every rank's peak (state and
@@ -2564,21 +2630,19 @@ def mesh_dryrun(launcher) -> dict:
     and the op that issued it.  Then ``step_memory`` of ``launcher``'s
     own step (the same cell on a (1, 1) mesh over meta tensors) against
     the bytes the card allocated for it: the launcher's peak less what
-    was allocated before it began, within ``DRYRUN_PEAK_RATIO``."""
-    env = dict(os.environ, CUDA_VISIBLE_DEVICES="")
-    t0 = time.perf_counter()
-    own = [launcher["arch"], launcher["seq"], launcher["batch"],
-           launcher["microbatch"]]
-    out = subprocess.run([sys.executable, "-c", DRYRUN_SCRIPT,
-                          str(ROOT / "src"), json.dumps(DRYRUN_CELLS),
-                          json.dumps(own)],
-                         capture_output=True, text=True, env=env)
-    wall = time.perf_counter() - t0
-    if out.returncode:
-        raise RuntimeError(f"the dry run failed:\n{out.stderr[-4000:]}")
+    was allocated before it began, within ``DRYRUN_PEAK_RATIO``.  The
+    process was started by :func:`dryrun_start` and waited on by
+    :func:`dryrun_wait` (``started``)."""
+    assert started["own"] == [launcher["arch"], launcher["seq"],
+                              launcher["batch"], launcher["microbatch"]]
+    if started["code"]:
+        err = (started["work"] / "err").read_text()
+        raise RuntimeError(f"the dry run failed:\n{err[-4000:]}")
     card = torch.cuda.get_device_properties(0).total_memory
-    recs = list(map(json.loads, out.stdout.splitlines()))
-    step = recs.pop()["launcher_step"]
+    recs = list(map(json.loads,
+                    (started["work"] / "out").read_text().splitlines()))
+    last = recs.pop()
+    step = last["launcher_step"]
     ratio = step["peak_bytes"] / launcher["own_peak_bytes"]
     if not DRYRUN_PEAK_RATIO[0] <= ratio <= DRYRUN_PEAK_RATIO[1]:
         raise AssertionError(f"dry-run peak {step['peak_bytes']} bytes of "
@@ -2645,10 +2709,12 @@ def mesh_dryrun(launcher) -> dict:
                     step["peak_bytes"] / launcher[
                         "max_memory_allocated_bytes"],
                 "limits": DRYRUN_PEAK_RATIO},
-            "process_wall_s": wall}
+            "process_s": last["process_s"],
+            "started_to_read_s": started["started_to_read_s"],
+            "waited_s": started["waited_s"]}
 
 
-def mesh_cpu_rank(rank, store, out, cases):
+def mesh_cpu_rank(rank, store, out, cases, record=None):
     """One of 4 CPU ranks: each case of ``mesh_cpu_case`` (its arch's
     config at full width, cut to ``MESH_CPU_LAYERS``, in f64) on a (2, 2)
     mesh: one train step from seed-1 masters on step 0's batch, as
@@ -2656,7 +2722,10 @@ def mesh_cpu_rank(rank, store, out, cases):
     ``adamw_update`` from a fresh state).  Each rank saves the loss, the
     grad norm, and its own shards of every gradient and updated parameter
     with their places (``<out>/<arch>.<rank>.pt``): gathering them over
-    gloo would take longer than the step."""
+    gloo would take longer than the step.  The case of arch ``record``
+    runs under the op recorder (``repro_torch.launch.oplog.OpLog``),
+    whose rows go to ``<out>/ops.<arch>.<rank>.json.gz`` and whose op
+    count and seconds go with the results."""
     from torch.distributed.tensor._utils import \
         compute_local_shape_and_global_offset
     torch.set_num_threads(2)
@@ -2671,19 +2740,39 @@ def mesh_cpu_rank(rank, store, out, cases):
                 for a in tree_leaves(tree)]
 
         for arch, (cfg, pipe) in cases.items():
-            with use_sharding(mesh):
+            log = OpLog() if arch == record else contextlib.nullcontext()
+            with use_sharding(mesh), log:
                 params = mesh_cpu_masters(cfg)
                 loss, grads = loss_and_grads(cfg, params, pipe.device_batch(
                     0, "cpu", batch_shardings(cfg, pipe.shape)), remat=False)
                 new, _, info = adamw_update(AdamWConfig(), params, grads,
                                             init_opt_state(params))
-                torch.save({"loss": full(loss),
-                            "grad_norm": info["grad_norm"],
-                            "grads": shards(grads), "params": shards(new)},
-                           Path(out) / f"{arch}.{rank}.pt")
+                part = {"loss": full(loss), "grad_norm": info["grad_norm"],
+                        "grads": shards(grads), "params": shards(new)}
                 del params, grads, new
+            if arch == record:
+                part["recorder"] = {"ops": len(log.rows),
+                                    "seconds": log.seconds}
+                with gzip.open(Path(out) / f"ops.{arch}.{rank}.json.gz",
+                               "wt") as f:
+                    json.dump(log.rows, f)
+            torch.save(part, Path(out) / f"{arch}.{rank}.pt")
+            del part
     finally:
         dist.destroy_process_group()
+
+
+def mesh_cpu_spawn(work, cases, record) -> float:
+    """The 4 ranks of :func:`mesh_cpu_rank` on ``cases`` (``record`` under
+    the op recorder), spawned from this process, working in ``work``
+    (emptied first); their wall seconds."""
+    shutil.rmtree(work, ignore_errors=True)
+    work.mkdir(parents=True)
+    t0 = time.perf_counter()
+    mp.start_processes(mesh_cpu_rank, args=(str(work / "store"), str(work),
+                                            cases, record),
+                       nprocs=4, join=True, start_method="spawn")
+    return time.perf_counter() - t0
 
 
 def mesh_cpu_whole(work, arch):
@@ -2692,12 +2781,15 @@ def mesh_cpu_whole(work, arch):
     ranks' shards (on the host: the card holds the reference's).  A
     shard that two ranks hold (a replica over a mesh axis) is taken from
     the first and held bit for bit against the other's; ``replicas_differ``
-    lists each (kind, leaf index, rank) where they part."""
-    whole, written = {"replicas_differ": []}, set()
+    lists each (kind, leaf index, rank) where they part.  ``recorder``:
+    each rank's op count and recorder seconds, where it was recorded."""
+    whole, written = {"replicas_differ": [], "recorder": []}, set()
     for rank in range(4):
         part = torch.load(work / f"{arch}.{rank}.pt")
         if rank == 0:
             whole.update({k: part[k] for k in ("loss", "grad_norm")})
+        if "recorder" in part:
+            whole["recorder"].append(part["recorder"])
         for key in ("grads", "params"):
             if rank == 0:
                 whole[key] = [torch.empty(shape, dtype=a.dtype)
@@ -2712,6 +2804,25 @@ def mesh_cpu_whole(work, arch):
                     whole["replicas_differ"].append((key, i, rank))
         del part
     return whole
+
+
+def mesh_cpu_digest(whole) -> str:
+    """One hash of the ranks' result put together whole: the loss, then
+    every gradient and every updated parameter, byte for byte."""
+    h = hashlib.sha256(str(float(whole["loss"])).encode())
+    for a in whole["grads"] + whole["params"]:
+        h.update(a.contiguous().numpy().tobytes())
+    return h.hexdigest()[:16]
+
+
+def mesh_cpu_ops(work, arch) -> list:
+    """Each rank's op rows of ``arch``, as :func:`mesh_cpu_rank` wrote
+    them."""
+    rows = []
+    for rank in range(4):
+        with gzip.open(work / f"ops.{arch}.{rank}.json.gz", "rt") as f:
+            rows.append(json.load(f))
+    return rows
 
 
 def mesh_cpu_case(arch):
@@ -2738,17 +2849,15 @@ def mesh_cpu() -> dict:
     card's, the grad norm and every updated parameter against AdamW on
     the card from the ranks' gradients, each held at ``MESH_CPU_RTOL``,
     relative by norm; every shard two ranks hold, bit for bit between
-    them.  A failing hold reads a second card step
-    (:func:`mesh_cpu_again`)."""
+    them.  The ranks of ``MESH_CPU_RECORDED`` run under the op recorder in
+    every run: the line gives their result's digest (beside the usual
+    one, ``MESH_CPU_USUAL_DIGEST``), each rank's op count and the
+    recorder's seconds.  A failing hold first reads
+    :func:`mesh_cpu_parting` (printed as its own line) and a second card
+    step (:func:`mesh_cpu_again`), then raises."""
     work = ROOT / "build" / "mesh_cpu"
-    shutil.rmtree(work, ignore_errors=True)
-    work.mkdir(parents=True)
     cases = {arch: mesh_cpu_case(arch) for arch in MESH_CPU_ARCHS}
-    t0 = time.perf_counter()
-    mp.start_processes(mesh_cpu_rank, args=(str(work / "store"), str(work),
-                                            cases),
-                       nprocs=4, join=True, start_method="spawn")
-    ranks_s = time.perf_counter() - t0
+    ranks_s = mesh_cpu_spawn(work, cases, MESH_CPU_RECORDED)
     out = {"mesh": {"data": 2, "model": 2}, "backend": "gloo",
            "reference": "one rank, no mesh, on the card",
            "n_layers": MESH_CPU_LAYERS, "batch": MESH_CPU_BATCH,
@@ -2765,11 +2874,25 @@ def mesh_cpu() -> dict:
 
         params, loss, grads = card_step()
         g = mesh_cpu_whole(work, arch)
+        # the recorded case's digest in every run; another's (seconds of
+        # hashing at olmoe's width) only where its hold fails
+        digest = mesh_cpu_digest(g) if arch == MESH_CPU_RECORDED else None
+        if arch == MESH_CPU_RECORDED:
+            usual = MESH_CPU_USUAL_DIGEST.get(torch.__version__)
+            out["recorded"] = {
+                "arch": arch, "ranks_digest": digest, "usual_digest": usual,
+                "digest_is_usual": None if usual is None
+                else digest == usual,
+                "ops": [r["ops"] for r in g["recorder"]],
+                "recorder_s": max(r["seconds"] for r in g["recorder"])}
         names = leaf_names(params)
         if g["replicas_differ"]:
+            parting = mesh_cpu_parting(work, cases, arch,
+                                       digest or mesh_cpu_digest(g))
             raise AssertionError(
                 f"mesh cpu {arch}: ranks that hold one shard part on "
-                f"{[(k, names[i], r) for k, i, r in g['replicas_differ']]}")
+                f"{[(k, names[i], r) for k, i, r in g['replicas_differ']]}"
+                f"; {parting}")
         # the update from the ranks' own gradients: AdamW is elementwise,
         # so this holds the update on shards apart from the gradients'
         # sums (AdamW's first step divides a gradient near its eps by
@@ -2791,9 +2914,11 @@ def mesh_cpu() -> dict:
             a, b = a.double().cuda(), b.double()
             err = float((a - b).norm() / b.norm().clamp_min(1e-300))
             if not err <= MESH_CPU_RTOL:
+                parting = mesh_cpu_parting(work, cases, arch,
+                                           digest or mesh_cpu_digest(g))
                 again = mesh_cpu_again(card_step, grads, g, names)
                 raise AssertionError(f"mesh cpu {arch} {name}: relative "
-                                     f"error {err}; {again}")
+                                     f"error {err}; {again}; {parting}")
             worst = max(worst, (err, name))
             peak = max(peak, (float((a - b).abs().max() / b.abs().max()
                                     .clamp_min(1e-300)), name))
@@ -2809,6 +2934,67 @@ def mesh_cpu() -> dict:
         del grads, new, g, masters, batch
         torch.cuda.empty_cache()
     shutil.rmtree(work)
+    return out
+
+
+FRESH_RANKS_SCRIPT = """
+import sys
+from pathlib import Path
+import torch
+sys.path.insert(0, sys.argv[1])
+import chip_smoke as C
+cases = torch.load(sys.argv[3], weights_only=False)
+C.mesh_cpu_spawn(Path(sys.argv[2]), cases, sys.argv[4] or None)
+"""
+
+
+def mesh_cpu_parting(work, cases, arch, digest) -> dict:
+    """What a failing hold of ``mesh_cpu`` reads from the ranks, printed
+    before it raises: the ranks of ``arch`` spawned a second time from
+    this process; where that spawn gives the first one's digest again, a
+    third time from a fresh interpreter (this process's environment as it
+    was before any phase ran).  A spawn is recorded as the first was:
+    only ``MESH_CPU_RECORDED``'s.  Each spawn's digest, whether it is the
+    usual one, and, where the ranks were recorded, for each rank the
+    first op at which the first spawn's record parts from the last
+    spawn's (``first_parting``: index, op, site, shapes and dtypes,
+    whether its inputs agreed, and the size of the difference of its
+    outputs)."""
+    usual = MESH_CPU_USUAL_DIGEST.get(torch.__version__)
+    out = {"arch": arch, "first": {"digest": digest,
+                                   "usual": usual and digest == usual},
+           "spawns": []}
+    record = arch if arch == MESH_CPU_RECORDED else None
+    again = work.with_name(f"{work.name}_again")
+    wall = mesh_cpu_spawn(again, {arch: cases[arch]}, record)
+    other = mesh_cpu_digest(mesh_cpu_whole(again, arch))
+    out["spawns"].append({"from": "this process", "digest": other,
+                          "usual": usual and other == usual,
+                          "wall_s": wall})
+    if other == digest:
+        fresh = work.with_name(f"{work.name}_fresh")
+        case = work.with_name(f"{work.name}_case.pt")
+        torch.save({arch: cases[arch]}, case)
+        t0 = time.perf_counter()
+        run = subprocess.run([sys.executable, "-c", FRESH_RANKS_SCRIPT,
+                              str(ROOT), str(fresh), str(case),
+                              record or ""],
+                             env=ENV_AT_START, capture_output=True,
+                             text=True)
+        if run.returncode:
+            out["spawns"].append({"from": "a fresh interpreter",
+                                  "failed": run.stderr[-2000:]})
+        else:
+            again = fresh
+            other = mesh_cpu_digest(mesh_cpu_whole(fresh, arch))
+            out["spawns"].append({"from": "a fresh interpreter",
+                                  "digest": other,
+                                  "usual": usual and other == usual,
+                                  "wall_s": time.perf_counter() - t0})
+    if record:
+        out["ranks"] = [first_parting(a, b) for a, b in zip(
+            mesh_cpu_ops(work, arch), mesh_cpu_ops(again, arch))]
+    emit({"mesh_cpu_parting": out})
     return out
 
 
@@ -2863,16 +3049,18 @@ def token_nll_vs_torch() -> dict:
             "bit_equal": equal}
 
 
-def phase_mesh(drive, paths, train) -> dict:
+def phase_mesh(drive, paths, train, dryrun) -> dict:
     """The sharding path: the launcher at ``--mesh 1x1`` on the card
-    against the train phase, the full-size dry run, and 4 CPU ranks
-    against one."""
+    against the train phase, the full-size dry run (its process started
+    by :func:`dryrun_start`, waited on before the launcher), and 4 CPU
+    ranks against one."""
     t_phase = time.perf_counter()
+    dryrun_wait(dryrun)
     out = {"phase": "mesh", "launcher": mesh_launcher(drive, train)}
     assert all(v == 0 for v in paths["mesh_train"].values()), paths
     out["loss_head"] = token_nll_vs_torch()
     t0 = time.perf_counter()
-    out["dryrun"] = mesh_dryrun(out["launcher"])
+    out["dryrun"] = mesh_dryrun(out["launcher"], dryrun)
     out["dryrun"]["part_s"] = time.perf_counter() - t0
     t0 = time.perf_counter()
     out["cpu_ranks"] = mesh_cpu()
@@ -3175,15 +3363,23 @@ def main() -> int:
     families = phase_serve_families(drive, paths)
     emit(families)
 
-    # ---- 9. the training path at qwen2-0.5b's full size
-    torch.cuda.empty_cache()
-    train = phase_train(drive, paths)
-    emit(train)
+    # ---- 9. the training path at qwen2-0.5b's full size, with the dry
+    # run of 9b on the host beside its restart and parity steps
+    dryrun = {}
+    try:
+        torch.cuda.empty_cache()
+        train = phase_train(drive, paths,
+                            lambda: dryrun.update(dryrun_start()))
+        emit(train)
 
-    # ---- 9b. the sharding path: a one-rank NCCL mesh, the dry run, 4
-    # CPU ranks
-    torch.cuda.empty_cache()
-    emit(phase_mesh(drive, paths, train))
+        # ---- 9b. the sharding path: a one-rank NCCL mesh, the dry run,
+        # 4 CPU ranks
+        torch.cuda.empty_cache()
+        emit(phase_mesh(drive, paths, train, dryrun))
+    finally:
+        if dryrun and dryrun["proc"].poll() is None:
+            dryrun["proc"].kill()
+            dryrun["proc"].wait()
 
     # ---- 10. kernels: each path launches its own kernels and no other;
     # the kernels line carries each kernel's count on its path and, for

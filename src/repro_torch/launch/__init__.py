@@ -1,2 +1,3 @@
 """Entry points of the port (``python -m repro_torch.launch.serve``,
-``.train`` and ``.dryrun``) and the production meshes (``mesh``)."""
+``.train`` and ``.dryrun``), the production meshes (``mesh``) and the op
+recorder that tells two runs of a step apart (``oplog``)."""

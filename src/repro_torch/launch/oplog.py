@@ -1,0 +1,305 @@
+"""A record of every local aten op a process runs, to tell two runs of one
+computation apart op by op: which op parts first, whether what fed it
+agreed, and by how much its outputs differ.
+
+:class:`OpLog` is a dispatch mode below DTensor (an op on DTensors is
+left to DTensor, which runs it on the rank's shards, and those come
+here).  It keeps one row an op::
+
+    [index, "namespace.op", site, input shapes, output shapes and dtypes,
+     inputs, output digests, flags, output stats]
+
+- ``site``: the innermost line outside torch and the standard library
+  (the model's, the step's, the caller's), with the autograd node
+  running (a backward's only trace).
+- ``inputs``: for each input tensor, the index of the op that last wrote
+  its storage, or ``["outside", digest]`` where no recorded op did.  Two
+  runs whose ops agree up to op i and whose op i was fed by the same ops
+  had equal inputs there.
+- ``output digests``: a 64-bit hash of each output's bytes (a weighted
+  sum of its words, modulo 2**64, with odd weights: any one changed
+  word changes it).  None for a view (it restates its storage, which may
+  not be written yet), for a new empty tensor and for a collective's
+  result before it is waited on.
+- ``stats``: for each floating output, its sum in float64 and its
+  largest magnitude, so that the first op that parts also gives the
+  size of the difference.
+- ``flags``: ``view``; ``reads_pending`` / ``writes_pending`` (with the
+  collective's index) for an op that reads a collective's result before
+  its ``wait_tensor``, or writes a collective's input before then;
+  ``thread`` for an op off the recording thread; ``nan_out`` for an op
+  that wrote NaN.
+
+The recorder only reads: its own reductions run with the mode off, in
+scratch buffers of its own.  :attr:`OpLog.seconds` is the time they took.
+:func:`first_parting` compares two records of one computation.
+"""
+import math
+import sys
+import sysconfig
+import threading
+import time
+from pathlib import Path
+
+import torch
+from torch.distributed._functional_collectives import AsyncCollectiveTensor
+from torch.distributed.tensor import DTensor
+from torch.utils._python_dispatch import TorchDispatchMode
+
+AROUND = 3          # ops shown before and after the first that parts
+_NOT_SITES = (str(Path(torch.__file__).parent), sysconfig.get_paths()["stdlib"],
+              __file__)
+_INT_OF_SIZE = {8: torch.int64, 4: torch.int32, 2: torch.int16,
+                1: torch.uint8}
+
+
+def _plain(t) -> bool:
+    return type(t) is torch.Tensor and t.device.type == "cpu"
+
+
+def _flat(x):
+    if isinstance(x, (list, tuple)):
+        for y in x:
+            yield from _flat(y)
+    elif isinstance(x, dict):
+        for y in x.values():
+            yield from _flat(y)
+    else:
+        yield x
+
+
+def _site() -> str:
+    """The innermost caller's line outside torch, the standard library and
+    this module, with the autograd node running."""
+    node = torch._C._current_autograd_node()
+    where, f = "", sys._getframe(2)
+    while f is not None:
+        name = f.f_code.co_filename
+        if not name.startswith(_NOT_SITES) and not name.startswith("<"):
+            where = f"{Path(name).name}:{f.f_lineno} {f.f_code.co_name}"
+            break
+        f = f.f_back
+    return f"{where} [{node.name()}]" if node is not None else where
+
+
+class Digest:
+    """A 64-bit hash of a tensor's bytes: its words (8-byte words for
+    8-byte elements, else each element widened) in rows of ``ROW``, each
+    row's sum of word times an odd weight, then the rows' sum of row sum
+    times an odd weight, all modulo 2**64.  Every word's weight is odd, so
+    a change in any one word changes the hash.  Computed with torch's own
+    integer ops in blocks, so that its scratch stays in cache."""
+
+    ROW = 1 << 14
+    BLOCK = 64          # rows a pass
+
+    def __init__(self) -> None:
+        g = torch.Generator().manual_seed(0x5EED)
+        self.w = torch.randint(-(1 << 62), 1 << 62, (self.ROW,),
+                               generator=g, dtype=torch.int64) | 1
+        self.v = torch.empty(0, dtype=torch.int64)
+        self.g = g
+        self.buf = torch.empty(self.BLOCK, self.ROW, dtype=torch.int64)
+
+    def _row_weights(self, n: int) -> torch.Tensor:
+        if self.v.numel() < n:
+            more = torch.randint(-(1 << 62), 1 << 62, (n - self.v.numel(),),
+                                 generator=self.g, dtype=torch.int64) | 1
+            self.v = torch.cat([self.v, more])
+        return self.v[:n]
+
+    def __call__(self, t: torch.Tensor) -> int:
+        t = t.detach()
+        if t.is_conj() or t.is_neg():
+            t = t.resolve_conj().resolve_neg()
+        if t.is_complex():
+            t = torch.view_as_real(t)
+        x = t.contiguous().reshape(-1)
+        x = x.view(_INT_OF_SIZE[x.element_size()])
+        if x.dtype != torch.int64:
+            x = x.to(torch.int64)
+        n = x.numel()
+        rows = -(-n // self.ROW)
+        sums = torch.empty(rows, dtype=torch.int64)
+        full = n // self.ROW
+        body = x[:full * self.ROW].view(full, self.ROW)
+        for i in range(0, full, self.BLOCK):
+            b = body[i:i + self.BLOCK]
+            part = torch.mul(b, self.w, out=self.buf[:b.shape[0]])
+            torch.sum(part, 1, out=sums[i:i + b.shape[0]])
+        if full < rows:
+            tail = x[full * self.ROW:]
+            sums[full] = (tail * self.w[:tail.numel()]).sum()
+        return int((sums * self._row_weights(rows)).sum())
+
+
+def stats(t: torch.Tensor):
+    """``[sum in float64, largest magnitude]`` of a floating tensor (NaN
+    where it holds NaN), else None."""
+    if not t.is_floating_point() or t.numel() == 0:
+        return None
+    lo, hi = torch.aminmax(t.detach())
+    return [float(t.detach().sum(dtype=torch.float64)),
+            float(torch.maximum(lo.abs(), hi.abs()))]
+
+
+class OpLog(TorchDispatchMode):
+    """Every local aten op and every collective a process runs, one row
+    each (the module's docstring gives the row).  A collective's result is
+    pending until its ``wait_tensor``: it is not read for a digest before,
+    and an op that reads or writes it, or writes a collective's input,
+    before then is flagged."""
+
+    COLLECTIVE = ("_c10d_functional", "c10d", "_dtensor")
+    WRAPPERS = (DTensor, AsyncCollectiveTensor)
+    NO_READ = ("wait_tensor", "_wrap_tensor_autograd")
+    EMPTY = ("empty", "empty_like", "empty_strided", "new_empty",
+             "new_empty_strided")
+
+    def __init__(self) -> None:
+        super().__init__()
+        self.rows = []
+        self.seconds = 0.0
+        self.digest = Digest()
+        self.writer = {}            # storage -> index of the op that wrote it
+        self.outside = {}           # storage -> digest, read but not written
+        self.pending_out, self.pending_in = {}, {}
+        self.thread = threading.get_ident()
+
+    @staticmethod
+    def _key(t) -> int:
+        return t.untyped_storage().data_ptr()
+
+    def _source(self, t):
+        key = self._key(t)
+        if key in self.writer:
+            return self.writer[key]
+        if key not in self.outside:
+            self.outside[key] = self.digest(t) if t.numel() else 0
+        return ["outside", self.outside[key]]
+
+    def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+        kwargs = kwargs or {}
+        if any(issubclass(t, self.WRAPPERS) for t in types):
+            return NotImplemented        # run on the shards: they come here
+        if types:                        # fake tensors: shapes, no data
+            return func(*args, **kwargs)
+        ns, name = func.namespace, str(func.overloadpacket).split(".")[-1]
+        outs_given = {id(v) for k, v in kwargs.items()
+                      if k == "out" or k.startswith("out")}
+        ins = [t for t in _flat((args, kwargs))
+               if _plain(t) and id(t) not in outs_given]
+        written = [a for a, s in zip(args, func._schema.arguments)
+                   if s.alias_info is not None and s.alias_info.is_write
+                   and _plain(a)]
+        flags = {}
+        keys = [self._key(t) for t in ins]
+        if name not in self.NO_READ and not func.is_view:
+            hit = [self.pending_out[k] for k in keys if k in self.pending_out]
+            if hit:
+                flags["reads_pending"] = hit[0]
+            hit = [self.pending_in[self._key(t)] for t in written
+                   if self._key(t) in self.pending_in]
+            if hit:
+                flags["writes_pending"] = hit[0]
+        if func.is_view:
+            flags["view"] = 1
+        if threading.get_ident() != self.thread:
+            flags["thread"] = threading.get_ident()
+        t0 = time.perf_counter()
+        sources = [self._source(t) for t in ins]
+        self.seconds += time.perf_counter() - t0
+        out = func(*args, **kwargs)
+        t0 = time.perf_counter()
+        outs = [t for t in _flat(out) if _plain(t)]
+        seen = {id(t) for t in outs}
+        outs += [t for t in written if id(t) not in seen]
+        idx = len(self.rows)
+        if ns in self.COLLECTIVE:
+            if name == "wait_tensor":
+                # a wait ends the collective whose result this is
+                done = {self.pending_out.pop(k) for k in keys
+                        if k in self.pending_out}
+                self.pending_in = {k: v for k, v in self.pending_in.items()
+                                   if v not in done}
+            elif ns == "_c10d_functional" and name not in self.NO_READ:
+                for t in outs:
+                    self.pending_out[self._key(t)] = idx
+                for t in ins:
+                    self.pending_in[self._key(t)] = idx
+        if func.is_view or name in self.EMPTY or (
+                ns in self.COLLECTIVE and name != "wait_tensor"):
+            digests, sizes = [None] * len(outs), [None] * len(outs)
+        else:
+            digests = [self.digest(t) if t.numel() else 0 for t in outs]
+            sizes = [stats(t) for t in outs]
+            if any(s is not None and math.isnan(s[1]) for s in sizes):
+                flags["nan_out"] = 1
+        if not func.is_view:
+            for t in outs:
+                self.writer[self._key(t)] = idx
+                self.outside.pop(self._key(t), None)
+        self.rows.append([
+            idx, f"{ns}.{name}", _site(),
+            [list(t.shape) for t in ins],
+            [f"{list(t.shape)}{str(t.dtype)[6:]}" for t in outs],
+            sources, digests, flags, sizes])
+        self.seconds += time.perf_counter() - t0
+        return out
+
+
+def flag_summary(rows: list) -> dict:
+    """Per flag, how many ops carry it, and the first ops (not views) that
+    wrote NaN (with every new tensor NaN-filled: where memory that no op
+    had written was read, or a buffer was left partly unwritten)."""
+    out = {"nan_ops": []}
+    for r in rows:
+        for k in r[7]:
+            if k != "view":
+                out[k] = out.get(k, 0) + 1
+        if "nan_out" in r[7] and "view" not in r[7] \
+                and len(out["nan_ops"]) < 8:
+            out["nan_ops"].append(r[:3] + [r[7]])
+    return out
+
+
+def _size(x: list, y: list) -> list:
+    """Each output's stats in the two runs and their differences."""
+    out = []
+    for a, b in zip(x[8], y[8]):
+        if a is None or b is None:
+            out.append(None)
+            continue
+        out.append({"sum": [a[0], b[0]], "abs_max": [a[1], b[1]],
+                    "sum_diff": a[0] - b[0], "abs_max_diff": a[1] - b[1]})
+    return out
+
+
+def first_parting(a: list, b: list) -> dict:
+    """Where two records of one computation first part: the op sequence
+    (another op, or other shapes or dtypes: ``kind`` "sequence"), or the
+    first op whose output digests differ, whether it was fed by the same
+    ops ("op chose differently (inputs agree)") or not ("inputs differ"),
+    its name, site, shapes and dtypes, and the size of the difference of
+    each output (``size``: sums and largest magnitudes in both runs); with
+    the rows around it in both records (``first``, ``second``).  A view's
+    digest is not compared: it restates its storage."""
+    for i, (x, y) in enumerate(zip(a, b)):
+        if x[1] != y[1] or x[3] != y[3] or x[4] != y[4]:
+            kind = "sequence"
+        elif x[6] != y[6] and "view" not in x[7]:
+            kind = "op chose differently (inputs agree)" \
+                if x[5] == y[5] else "inputs differ"
+        else:
+            continue
+        lo = max(0, i - AROUND)
+        return {"index": i, "kind": kind, "ops": len(a), "op": x[1],
+                "site": x[2], "inputs": x[3], "outputs": x[4],
+                "other": [y[1], y[3], y[4]] if kind == "sequence" else None,
+                "inputs_agree": x[5] == y[5], "size": _size(x, y),
+                "first": a[lo:i + AROUND + 1],
+                "second": b[lo:i + AROUND + 1]}
+    if len(a) != len(b):
+        return {"index": min(len(a), len(b)), "kind": "length",
+                "ops": [len(a), len(b)]}
+    return {"index": None, "kind": "equal", "ops": len(a)}

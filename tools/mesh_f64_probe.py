@@ -7,7 +7,8 @@ the ranks parts.
                                     [--record] [--record-every K]
                                     [--fill nan] [--load N]
                                     [--hashseed unset|random|same]
-                                    [--tree DIR] [--out PATH]
+                                    [--inherit GB] [--tree DIR]
+                                    [--out PATH]
 
 The hold (``chip_smoke.mesh_cpu``): qwen2-0.5b at full width cut to 2
 layers, f64, one train step from seed-1 masters on 4 CPU ranks (gloo,
@@ -31,20 +32,29 @@ hold runs), drawn at random for each rank and written down
 ``--load N`` keeps N busy processes running beside the ranks.
 ``--fill nan`` fills every new tensor with NaN (PyTorch's
 deterministic mode), so that a read of memory no op wrote shows.
+``--inherit GB`` gives the ranks, without ``chip_smoke.main()``, what a
+rank spawned after it inherits from its parent: the environment
+variable ``TORCHINDUCTOR_CACHE_DIR`` and setuptools' vendored packages
+on ``sys.path`` (what importing ``torch.utils.cpp_extension`` leaves,
+as the kernels' build does), and GB gigabytes less free host memory
+(a buffer this process writes and holds while the ranks run).
 
-``--record`` runs each rank's step under :class:`OpLog`, a dispatch
-mode below DTensor that keeps, for every local aten op and every
-collective, its index, name, shapes, dtype, call site (the
-innermost line of the port, or the autograd node running) and a CRC-32
-of each tensor it reads and each it writes (a collective's result when
-it is waited on).  It flags an op that reads or writes a buffer a
-collective has not finished with, an op off the rank's thread and (with
-``--fill nan``) the ops that write NaN.  Every recorded run is held op
-by op against the first recorded run with the usual digest: per rank,
-the first op whose output parts, and whether its inputs agreed (the op
-chose differently) or not (what fed it did); a run with another digest
-also gets the ops around it, and both runs' records go to
-``<out>.ops/``.  ``--record-every K`` records only every K-th run.
+``--record`` runs each rank's step under ``OpLog``
+(``src/repro_torch/launch/oplog.py``, taken from this checkout whatever
+``--tree`` says), a dispatch mode below DTensor that keeps, for every
+local aten op and every collective, its index, name, shapes, dtype, call
+site (the innermost line outside torch, or the autograd node running),
+the op that wrote each tensor it reads, a 64-bit digest of each tensor
+it writes (a collective's result when it is waited on) and each floating
+output's sum and largest magnitude.  It flags an op that reads or writes
+a buffer a collective has not finished with, an op off the rank's thread
+and the ops that write NaN.  Every recorded run is held op by op against
+the first recorded run with the usual digest: per rank, the first op
+whose output parts, whether it was fed by the same ops (the op chose
+differently) or not (what fed it did), and the size of the difference; a
+run with another digest also gets the ops around it, and both runs'
+records go to ``<out>.ops/``.  ``--record-every K`` records only every
+K-th run.
 
 ``--tree DIR`` runs the ranks (and the card step) from another checkout
 (its ``chip_smoke.py`` and ``src/``), e.g. a parent commit unpacked
@@ -54,14 +64,14 @@ products, each held bit for bit against the cold run.
 
 One JSON line per reading, also to ``--out`` (default
 ``chiprun_out/mesh_f64_probe.jsonl``).  A rank run takes 35-60 s on 8
-cores, with ``--record`` 95-115 s, with ``--fill nan`` as well
-115-140 s; ``--main`` takes about 13 min.  Without a card the card side
+cores; ``--main`` takes about 13 min.  Without a card the card side
 is skipped.
 """
 import argparse
 import contextlib
 import gzip
 import hashlib
+import importlib.util
 import io
 import json
 import os
@@ -70,7 +80,6 @@ import subprocess
 import sys
 import threading
 import time
-import zlib
 from pathlib import Path
 
 ROOT = Path(__file__).resolve().parents[1]
@@ -93,17 +102,28 @@ sys.path.insert(0, str(TREE))
 
 import torch  # noqa: E402
 import torch.multiprocessing as mp  # noqa: E402
-from torch.distributed._functional_collectives import \
-    AsyncCollectiveTensor  # noqa: E402
-from torch.distributed.tensor import DTensor  # noqa: E402
-from torch.utils._python_dispatch import TorchDispatchMode  # noqa: E402
 
 import chip_smoke as C  # noqa: E402
+
+
+def _oplog():
+    """This checkout's ``repro_torch.launch.oplog``, whichever tree's
+    ``repro_torch`` is imported."""
+    path = ROOT / "src" / "repro_torch" / "launch" / "oplog.py"
+    spec = importlib.util.spec_from_file_location("mesh_probe_oplog", path)
+    mod = importlib.util.module_from_spec(spec)
+    sys.modules[spec.name] = mod
+    spec.loader.exec_module(mod)
+    return mod
+
+
+_log = _oplog()
+OpLog, first_parting, flag_summary = (_log.OpLog, _log.first_parting,
+                                      _log.flag_summary)
 
 ARCH = "qwen2-0.5b"
 HEAT_S = 55.0       # long enough for the card to reach its power limit
 KEPT_RUNS = 3       # differing runs whose op records are kept
-AROUND = 3          # ops shown before and after the first that parts
 
 
 def smi() -> str:
@@ -153,190 +173,26 @@ def process_state() -> dict:
             "torch_threads": torch.get_num_threads()}
 
 
-# ------------------------------------------------------------ op records
-def _crc(t: torch.Tensor) -> int:
-    t = t.detach()
-    if t.numel() == 0:
-        return 0
-    t = t.contiguous().reshape(-1)
-    if t.dtype.is_complex or t.is_conj() or t.is_neg():
-        t = t.resolve_conj().resolve_neg()
-    return zlib.crc32(t.view(torch.uint8).numpy())
-
-
-def _plain(t) -> bool:
-    return type(t) is torch.Tensor and t.device.type == "cpu"
-
-
-def _flat(x):
-    if isinstance(x, (list, tuple)):
-        for y in x:
-            yield from _flat(y)
-    elif isinstance(x, dict):
-        for y in x.values():
-            yield from _flat(y)
-    else:
-        yield x
-
-
-def _site() -> str:
-    """The innermost line of the port or of ``chip_smoke.py`` on the
-    stack, with the autograd node running (the backward's only trace)."""
-    node = torch._C._current_autograd_node()
-    where, f = "", sys._getframe(2)
-    while f is not None:
-        name = f.f_code.co_filename
-        if "repro_torch" in name or name.endswith("chip_smoke.py"):
-            where = f"{Path(name).name}:{f.f_lineno} {f.f_code.co_name}"
-            break
-        f = f.f_back
-    return f"{where} [{node.name()}]" if node is not None else where
-
-
-class OpLog(TorchDispatchMode):
-    """Every local aten op and every collective a rank runs, below
-    DTensor (an op on DTensors is left to DTensor, which runs it on the
-    rank's shards, and those come here): one row each, ``[index, op,
-    site, input shapes, output shapes and dtypes, input CRCs, output
-    CRCs, flags]``.  A collective's
-    result is pending until its ``wait_tensor``: it is not read for a
-    digest before, and an op that reads or writes it, or writes a
-    collective's input, before then is flagged (``reads_pending``,
-    ``writes_pending``) with the collective's index."""
-
-    COLLECTIVE = ("_c10d_functional", "c10d", "_dtensor")
-    WRAPPERS = (DTensor, AsyncCollectiveTensor)
-    NO_READ = ("wait_tensor", "_wrap_tensor_autograd")
-    EMPTY = ("empty", "empty_like", "empty_strided", "new_empty",
-             "new_empty_strided")
-
-    def __init__(self, nan: bool = False) -> None:
-        super().__init__()
-        self.nan, self.rows = nan, []
-        self.pending_out, self.pending_in = {}, {}
-        self.thread = threading.get_ident()
-
-    @staticmethod
-    def _key(t):
-        return t.untyped_storage().data_ptr()
-
-    def _crcs(self, ts):
-        return [None if self._key(t) in self.pending_out else _crc(t)
-                for t in ts]
-
-    def _nan(self, ts) -> bool:
-        return any(t.is_floating_point() and self._key(t)
-                   not in self.pending_out and bool(t.isnan().any())
-                   for t in ts)
-
-    def __torch_dispatch__(self, func, types, args=(), kwargs=None):
-        kwargs = kwargs or {}
-        if any(issubclass(t, self.WRAPPERS) for t in types):
-            return NotImplemented        # run on the shards: they come here
-        if types:                        # fake tensors: shapes, no data
-            return func(*args, **kwargs)
-        ns, name = func.namespace, str(func.overloadpacket).split(".")[-1]
-        outs_given = {id(v) for k, v in kwargs.items()
-                      if k == "out" or k.startswith("out")}
-        ins = [t for t in _flat((args, kwargs))
-               if _plain(t) and id(t) not in outs_given]
-        written = [a for a, s in zip(args, func._schema.arguments)
-                   if s.alias_info is not None and s.alias_info.is_write
-                   and _plain(a)]
-        flags = {}
-        keys = [self._key(t) for t in ins]
-        if name not in self.NO_READ and not func.is_view:
-            hit = [self.pending_out[k] for k in keys if k in self.pending_out]
-            if hit:
-                flags["reads_pending"] = hit[0]
-            hit = [self.pending_in[self._key(t)] for t in written
-                   if self._key(t) in self.pending_in]
-            if hit:
-                flags["writes_pending"] = hit[0]
-        if func.is_view:
-            flags["view"] = 1
-        if threading.get_ident() != self.thread:
-            flags["thread"] = threading.get_ident()
-        before = self._crcs(ins)
-        if self.nan and self._nan(ins):
-            flags["nan_in"] = 1
-        out = func(*args, **kwargs)
-        outs = [t for t in _flat(out) if _plain(t)]
-        idx = len(self.rows)
-        if ns in self.COLLECTIVE:
-            if name == "wait_tensor":
-                # a wait ends the collective whose result this is
-                done = {self.pending_out.pop(k) for k in keys
-                        if k in self.pending_out}
-                self.pending_in = {k: v for k, v in self.pending_in.items()
-                                   if v not in done}
-            elif ns == "_c10d_functional" and name not in self.NO_READ:
-                for t in outs:
-                    self.pending_out[self._key(t)] = idx
-                for t in ins:
-                    self.pending_in[self._key(t)] = idx
-        if name in self.EMPTY or (ns in self.COLLECTIVE
-                                  and name != "wait_tensor"):
-            after = []                   # nothing written yet
-        else:
-            after = self._crcs(outs)
-            if self.nan and self._nan(outs):
-                flags["nan_out"] = 1
-        self.rows.append([
-            idx, f"{ns}.{name}", _site(),
-            [list(t.shape) for t in ins],
-            [f"{list(t.shape)}{str(t.dtype)[6:]}" for t in outs],
-            before, after, flags])
-        return out
-
-
-def flag_summary(rows: list) -> dict:
-    """Per flag, how many ops carry it, and the first ops (not views)
-    that wrote NaN (with ``--fill nan``: where memory that no op had
-    written was read, or a buffer was left partly unwritten)."""
-    out = {"nan_ops": []}
-    for r in rows:
-        for k in r[7]:
-            if k != "view":
-                out[k] = out.get(k, 0) + 1
-        if "nan_out" in r[7] and "view" not in r[7] \
-                and len(out["nan_ops"]) < 8:
-            out["nan_ops"].append(r[:3] + [r[7]])
-    return out
-
-
-def first_parting(a: list, b: list) -> dict:
-    """Where two ranks' records (same rank, two runs) first part: the
-    op sequence (another op, or other shapes), or the first op whose
-    output CRCs differ, and whether its inputs agreed; with the ops
-    around it in both runs."""
-    for i, (x, y) in enumerate(zip(a, b)):
-        if x[1] != y[1] or x[3] != y[3] or x[4] != y[4]:
-            kind = "sequence"
-        elif x[6] != y[6] and "view" not in x[7]:
-            # a view restates its storage, which may not be written yet
-            kind = "op chose differently (inputs agree)" \
-                if x[5] == y[5] else "inputs differ"
-        else:
-            continue
-        lo = max(0, i - AROUND)
-        return {"index": i, "kind": kind, "ops": len(a),
-                "first": a[lo:i + AROUND + 1],
-                "second": b[lo:i + AROUND + 1]}
-    if len(a) != len(b):
-        return {"index": min(len(a), len(b)), "kind": "length",
-                "ops": [len(a), len(b)]}
-    return {"index": None, "kind": "equal", "ops": len(a)}
+def inherit(gb: float):
+    """What a rank spawned after ``chip_smoke.main()`` inherits from its
+    parent, given to this process: ``TORCHINDUCTOR_CACHE_DIR`` and
+    setuptools' vendored packages on ``sys.path`` (importing
+    ``torch.utils.cpp_extension``, as the kernels' build does), and ``gb``
+    gigabytes of host memory written and held (returned: keep it alive
+    while the ranks run)."""
+    from torch._inductor.runtime.cache_dir_utils import default_cache_dir
+    from torch.utils.cpp_extension import CUDA_HOME  # noqa: F401
+    os.environ.setdefault("TORCHINDUCTOR_CACHE_DIR", default_cache_dir())
+    return torch.ones(int(gb * 1e9) // 8, dtype=torch.float64)
 
 
 # ------------------------------------------------------------ the ranks
 def probe_rank(rank, store, out, cases, record, fill):
     """``chip_smoke.mesh_cpu_rank``, after writing this rank's
     :func:`process_info` (with 2 threads, as the rank runs) to
-    ``<out>/info.<rank>.json``; with ``record`` under :class:`OpLog`,
-    whose rows go to ``<out>/ops.<rank>.json.gz``; with ``fill`` "nan"
-    every new tensor holds NaN (PyTorch's deterministic mode) and the
-    rows flag NaN read and written."""
+    ``<out>/info.<rank>.json``; with ``record`` under ``OpLog``, whose
+    rows go to ``<out>/ops.<rank>.json.gz``; with ``fill`` "nan" every
+    new tensor holds NaN (PyTorch's deterministic mode)."""
     torch.set_num_threads(2)
     cfg = next(iter(cases.values()))[0]
     Path(out, f"info.{rank}.json").write_text(json.dumps(process_info(cfg)))
@@ -346,10 +202,12 @@ def probe_rank(rank, store, out, cases, record, fill):
     if not record:
         C.mesh_cpu_rank(rank, store, out, cases)
         return
-    with OpLog(fill == "nan") as log:
+    with OpLog() as log:
         C.mesh_cpu_rank(rank, store, out, cases)
     with gzip.open(Path(out, f"ops.{rank}.json.gz"), "wt") as f:
         json.dump(log.rows, f)
+    Path(out, f"recorder.{rank}.json").write_text(json.dumps(
+        {"ops": len(log.rows), "seconds": log.seconds}))
 
 
 def _spawn(fn, args, seeds) -> None:
@@ -395,6 +253,8 @@ def _seeds(how: str) -> list:
 
 
 def _digest(whole) -> str:
+    """``chip_smoke.mesh_cpu_digest``, here so that another tree's ranks
+    are hashed the same way."""
     h = hashlib.sha256(str(float(whole["loss"])).encode())
     for a in whole["grads"] + whole["params"]:
         h.update(a.contiguous().numpy().tobytes())
@@ -435,6 +295,8 @@ def ranks(tag: str, seeds, record=False, fill=None, load=0, case=None,
         for r in range(4):
             with gzip.open(Path(work, f"ops.{r}.json.gz"), "rt") as f:
                 out["ops"].append(json.load(f))
+        out["recorder"] = [json.loads(Path(
+            work, f"recorder.{r}.json").read_text()) for r in range(4)]
     shutil.rmtree(work)
     return out
 
@@ -490,6 +352,7 @@ def main() -> int:
                     choices=("unset", "random", "same"))
     ap.add_argument("--fill", choices=("nan",))
     ap.add_argument("--load", type=int, default=0)
+    ap.add_argument("--inherit", type=float, default=0.0)
     ap.add_argument("--tree")
     ap.add_argument("--out", default=str(ROOT / "chiprun_out" /
                                          "mesh_f64_probe.jsonl"))
@@ -505,6 +368,15 @@ def main() -> int:
 
     emit(card=smi(), torch=torch.__version__, tree=str(TREE),
          args=vars(args))
+    held = None
+    if args.inherit:
+        before = process_state()
+        held = inherit(args.inherit)
+        after = process_state()
+        emit(inherited={k: [before[k], after[k]] for k in after
+                        if before[k] != after[k] and k != "env"},
+             env_added={k: v for k, v in after["env"].items()
+                        if k not in before["env"]})
     cfg, pipe = C.mesh_cpu_case(ARCH)
     masters = C.mesh_cpu_masters(cfg)
     names = C.leaf_names(masters)
@@ -560,6 +432,7 @@ def main() -> int:
         rec = {"ranks_run": i, "digest": again["digest"],
                "hashseeds": seeds, "wall_s": again["wall_s"],
                "recorded": record, "loss": again["loss"],
+               "recorder": again.get("recorder"),
                "replicas_differ": again["replicas_differ"],
                "nan": again["nan"],
                "str_hashes": [x["str_hash"] for x in again["info"]],
@@ -573,8 +446,9 @@ def main() -> int:
             if base_ops is not None:
                 parting = [first_parting(a, b) for a, b in zip(
                     base_ops["ops"], again["ops"])]
-                rec["op_parting"] = [{k: p[k] for k in ("index", "kind")}
-                                     for p in parting]
+                rec["op_parting"] = [{k: p.get(k) for k in (
+                    "index", "kind", "op", "site", "size")}
+                    for p in parting]
         first = first or again
         if again["digest"] != first["digest"]:
             rec["vs_first"] = {"loss": again["loss"] - first["loss"],
@@ -599,7 +473,8 @@ def main() -> int:
         again.pop("ops", None)
     if plan:
         emit(runs=len(plan), digests=counts,
-             first=first["digest"] if first else None)
+             first=first["digest"] if first else None,
+             inherited_gb=args.inherit if held is not None else 0)
     if "card" in now and "ranks" in now:
         emit(vs="card against ranks, now", worst=max(
             (float((a - b).norm() / b.norm()), n) for n, a, b in zip(

@@ -24,7 +24,7 @@ the forward as ``chip_smoke.py`` runs them (``decode_and_forward``),
 ``--reps`` times without the dispatch mode.  Lines also go to ``--out``
 (default ``chiprun_out/moe_f64_probe.jsonl``).
 
-    python3 tools/moe_f64_probe.py --cpu-processes N [--ops DIR]
+    python3 tools/moe_f64_probe.py --cpu-processes N [--record]
                                    [--out PATH]
 
 runs instead the CPU side of that check (``chip_smoke.moe_card_vs_cpu``:
@@ -32,15 +32,18 @@ the seed-1 masters drawn on the card, the 16 decode steps and the
 forward in f64 on the host) N times, each in a fresh process, and
 prints one line a process with a hash of its logits and of its picks
 and their max abs difference from the first process's (about 25 s a
-process), then the count of each hash.  With ``--ops DIR`` every second
-process runs under the op recorder (about 2 min a process): the first
-saves every op's output in DIR, later ones list the first ops whose
-outputs are not bit-equal to those.
+process), then the count of each hash.  With ``--record`` every
+process runs under the port's op recorder
+(``repro_torch.launch.oplog.OpLog``: the op that wrote each input, a
+digest, sum and largest magnitude of each output) and each later
+process's record is held against the first's (``first_parting``: the
+first op that parts, its site, whether its inputs agreed and the size
+of the difference).
 """
 import argparse
 import contextlib
 import dataclasses
-import hashlib
+import gzip
 import json
 import subprocess
 import sys
@@ -56,6 +59,7 @@ from torch.utils._python_dispatch import TorchDispatchMode  # noqa: E402
 from torch.utils._pytree import tree_leaves  # noqa: E402
 
 from repro_torch.configs import get_arch  # noqa: E402
+from repro_torch.launch.oplog import OpLog, first_parting  # noqa: E402
 from repro_torch.models import layers as L  # noqa: E402
 from repro_torch.models import model as M  # noqa: E402
 from repro_torch.models.params import init_params, tree_map  # noqa: E402
@@ -115,7 +119,7 @@ class _Record(TorchDispatchMode):
         super().__init__()
         self.stages, self.want = stages, want
         self.ops, self.diffs, self.unmatched = {}, [], []
-        self.parted, self.count = [], {}
+        self.count = {}
 
     def __torch_dispatch__(self, func, types, args=(), kwargs=None):
         out = func(*args, **(kwargs or {}))
@@ -139,14 +143,6 @@ class _Record(TorchDispatchMode):
             ref = self.want[key]
             if ref is None:
                 continue
-            # a view restates its storage, which may not be written yet
-            if not func.is_view and not torch.equal(host, ref) \
-                    and len(self.parted) < 8:
-                self.parted.append({"op": len(self.ops) - 1,
-                                    "key": " ".join(map(str, key))})
-                if host.dtype.is_floating_point and host.shape == ref.shape:
-                    self.parted[-1]["max_abs_err"] = float(
-                        (host.double() - ref.double()).abs().max())
             if host.dtype.is_floating_point:
                 d = (host.double() - ref.double()).abs()
                 err = float(d.max()) if d.numel() else 0.0
@@ -211,15 +207,12 @@ def emit(obj, out) -> None:
         f.write(line + "\n")
 
 
-def cpu_once(ops=None, save=None) -> dict:
+def cpu_once(save=None, record=None) -> dict:
     """The f64 CPU side of ``chip_smoke.moe_card_vs_cpu`` in this
     process: hashes of its decode and forward logits and of its picks.
-    With ``ops`` (a directory) it runs under :class:`_Record`: the first
-    process to find no ``ref.pt`` there saves every op's output to it
-    and its logits to ``logits.pt``; later ones list the first ops whose
-    outputs are not bit-equal to those (``parted``, with the max abs
-    difference) and the max abs difference of the logits (about 2 min a
-    process).  With ``save`` (a path) the logits are saved there."""
+    With ``save`` (a path) the logits are saved there.  With
+    ``record`` (a path) the run is recorded by ``OpLog``, whose rows are
+    written there."""
     sys.path.insert(0, str(ROOT))
     import chip_smoke as C
     cfg = dataclasses.replace(get_arch(ARCH), n_layers=N_LAYERS)
@@ -229,52 +222,43 @@ def cpu_once(ops=None, save=None) -> dict:
         c, M._cast(host, torch.float64), C.decode_tokens(cfg).cpu()))
     t0 = time.perf_counter()
     extra = {}
-    if ops is None:
-        (dec, full), picks = run()
-    else:
-        ref = Path(ops) / "ref.pt"
-        want = torch.load(ref) if ref.exists() else None
-        stages = _Stages()
-        with stages.installed(), _Record(stages, want) as rec:
+    if record:
+        with OpLog() as log:
             (dec, full), picks = run()
-        if want is None:
-            torch.save(rec.ops, ref)
-            torch.save([dec, full], Path(ops) / "logits.pt")
-        else:
-            d0, f0 = torch.load(Path(ops) / "logits.pt")
-            extra = {"parted": rec.parted, "diffs": rec.diffs[:8],
-                     "ops": len(rec.ops),
-                     "decode_max_abs": float((dec - d0).abs().max()),
-                     "forward_max_abs": float((full - f0).abs().max())}
-
+        with gzip.open(record, "wt") as f:
+            json.dump(log.rows, f)
+        extra = {"ops": len(log.rows), "recorder_s": log.seconds}
+    else:
+        (dec, full), picks = run()
     if save:
         torch.save([dec, full], save)
-
-    def sha(ts):
-        h = hashlib.sha256()
-        for t in ts:
-            h.update(t.contiguous().numpy().tobytes())
-        return h.hexdigest()[:16]
-
-    return {"decode": sha([dec]), "forward": sha([full]),
-            "picks": sha(picks), "cpu_s": time.perf_counter() - t0,
-            "threads": torch.get_num_threads(), "recorded": ops is not None,
-            **extra}
+    return {"decode": C.sha16([dec]), "forward": C.sha16([full]),
+            "picks": C.sha16(picks), "cpu_s": time.perf_counter() - t0,
+            "threads": torch.get_num_threads(),
+            "recorded": bool(record), **extra}
 
 
-def cpu_processes(n: int, out: str, ops=None) -> None:
+def _rows(path):
+    with gzip.open(path, "rt") as f:
+        return json.load(f)
+
+
+def cpu_processes(n: int, out: str, record=False) -> None:
     """``n`` fresh processes of :func:`cpu_once`, each one's decode and
-    forward logits held against the first's (max abs difference); with
-    ``ops`` every second one records op by op there."""
-    counts, work = {}, ROOT / "build" / "moe_cpu_processes"
+    forward logits held against the first's by value (max abs
+    difference); with ``record`` each one runs under ``OpLog`` and each
+    later one's record is held against the first's (``first_parting``,
+    with the rows around the parting where its logits differ).
+    The last line counts the processes of each hash and gives, for each
+    hash, the largest difference of its processes from the first's."""
+    counts, largest = {}, {}
+    work = ROOT / "build" / "moe_cpu_processes"
     work.mkdir(parents=True, exist_ok=True)
-    if ops:
-        Path(ops).mkdir(parents=True, exist_ok=True)
     for i in range(n):
         cmd = [sys.executable, __file__, "--cpu-once", "--save",
                str(work / f"{i}.pt")]
-        if ops and i % 2 == 0:
-            cmd += ["--ops", ops]
+        if record:
+            cmd += ["--record", str(work / f"{i}.rows.json.gz")]
         got = subprocess.run(cmd, capture_output=True, text=True)
         line = got.stdout.strip().splitlines()
         rec = json.loads(line[-1]) if got.returncode == 0 and line else {
@@ -283,19 +267,32 @@ def cpu_processes(n: int, out: str, ops=None) -> None:
             now, first = (torch.load(work / f"{j}.pt") for j in (i, 0))
             rec["vs_first_max_abs"] = [float((a - b).abs().max())
                                        for a, b in zip(now, first)]
+            if record and i:
+                got = first_parting(_rows(work / "0.rows.json.gz"),
+                                    _rows(work / f"{i}.rows.json.gz"))
+                if not any(rec["vs_first_max_abs"]):
+                    got.pop("first", None)
+                    got.pop("second", None)
+                rec["parting"] = got
+                (work / f"{i}.rows.json.gz").unlink()
             if i:
                 (work / f"{i}.pt").unlink()
-        key = (rec.get("decode"), rec.get("forward"), rec.get("picks"))
-        counts[str(key)] = counts.get(str(key), 0) + 1
+        key = str((rec.get("decode"), rec.get("forward"), rec.get("picks")))
+        counts[key] = counts.get(key, 0) + 1
+        if "vs_first_max_abs" in rec:
+            largest[key] = [max(a, b) for a, b in zip(
+                largest.get(key, [0.0, 0.0]), rec["vs_first_max_abs"])]
         emit({"probe": "cpu_process", "i": i, **rec}, out)
-    emit({"probe": "cpu_processes", "n": n, "counts": counts}, out)
+    emit({"probe": "cpu_processes", "n": n, "counts": counts,
+          "largest_vs_first_max_abs": largest}, out)
 
 
 def main() -> int:
     if "--cpu-once" in sys.argv:
         arg = lambda k: sys.argv[sys.argv.index(k) + 1] \
             if k in sys.argv else None  # noqa: E731
-        print(json.dumps(cpu_once(arg("--ops"), arg("--save"))), flush=True)
+        print(json.dumps(cpu_once(arg("--save"), arg("--record"))),
+              flush=True)
         return 0
     if not torch.cuda.is_available():
         print("moe_f64_probe: no CUDA device", file=sys.stderr)
@@ -303,13 +300,13 @@ def main() -> int:
     ap = argparse.ArgumentParser()
     ap.add_argument("--reps", type=int, default=10)
     ap.add_argument("--cpu-processes", type=int, default=0)
-    ap.add_argument("--ops")
+    ap.add_argument("--record", action="store_true")
     ap.add_argument("--out", default=str(ROOT / "chiprun_out" /
                                          "moe_f64_probe.jsonl"))
     args = ap.parse_args()
     Path(args.out).parent.mkdir(parents=True, exist_ok=True)
     if args.cpu_processes:
-        cpu_processes(args.cpu_processes, args.out, args.ops)
+        cpu_processes(args.cpu_processes, args.out, args.record)
         return 0
     cfg = dataclasses.replace(get_arch(ARCH), n_layers=N_LAYERS,
                               dtype="float64")
