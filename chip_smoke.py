@@ -121,13 +121,17 @@ allocated for it
 (within 0.85-1.15); and 4 CPU ranks (gloo,
 2 x 2) at full width, 2 layers, f64, one train step of qwen2-0.5b and
 olmoe-1b-7b held to the same step on one rank (the card, no mesh) at
-1e-10 relative by norm, the qwen2-0.5b ranks under the op recorder
-(``repro_torch.launch.oplog``) in every run: the line gives their
-result's digest beside the usual one, each rank's op count and the
-recorder's seconds, and a failing hold first prints, on a line of its
-own, where a second recorded spawn of the ranks parts from the first,
-op by op (the op, its site, whether its inputs agreed, the size of the
-difference).  olmoe's line gives the digests of its CPU f64 side.
+1e-10 relative by norm, the ranks plain: the qwen2-0.5b ranks digest
+each stage of their step (``repro_torch.launch.oplog.Stages``: the
+draw, the masters, the batch, each layer, the logits, the loss, each
+gradient, the update), and the line gives their result's digest and
+each stage's digests beside the usual ones; a failing hold first
+prints, on a line of its own, the first stage at which it parts from
+the usual digests, then respawns the ranks twice under the op recorder
+(``repro_torch.launch.oplog.OpLog``) and prints where the two records
+part, op by op (the op, its site, whether its inputs agreed, the size
+of the difference).  olmoe's line gives the digests of its CPU f64
+side, and of each stage of its forward beside the usual ones.
 bf16 attention must go to the tensor-core kernel and f32 to the
 CUDA-core one, bf16 with q, k and v scaled by 8 must hold the elementwise
 bf16 tolerance, and each attention case is timed warm and with the L2
@@ -206,7 +210,8 @@ from repro_torch.launch.serve import build_engine  # noqa: E402
 from repro_torch.launch.train import (init_state, resume,  # noqa: E402
                                       start_group, train_loop)
 from repro_torch.launch.mesh import make_mesh  # noqa: E402
-from repro_torch.launch.oplog import OpLog, first_parting  # noqa: E402
+from repro_torch.launch.oplog import (OpLog, Stages,  # noqa: E402
+                                      first_parting, joined, parted_stage)
 from repro_torch.models.sharding import full, use_sharding  # noqa: E402
 from repro_torch.train.step import (batch_shardings,  # noqa: E402
                                     opt_shardings)
@@ -364,11 +369,104 @@ MOE_F64_REPS = 10
 MESH_CPU_ARCHS = ("qwen2-0.5b", "olmoe-1b-7b")
 MESH_CPU_LAYERS, MESH_CPU_BATCH, MESH_CPU_SEQ = 2, 4, 256
 MESH_CPU_RTOL = 1e-10
-# the case whose ranks run under the op recorder in every run, and the
-# digest of its ranks' result (loss, gradients, updated parameters) on
-# every run so far, by torch version (the card machine's host)
-MESH_CPU_RECORDED = "qwen2-0.5b"
+# the case whose ranks digest each stage of their step in every run
+# (``Stages``: the draw, the masters, the batch, each layer's attention
+# stages, MLP and output, the logits, the loss, each gradient, the
+# update), plain; a failing hold respawns its ranks under the op
+# recorder.  The digest of its ranks' result (loss, gradients, updated
+# parameters) and each stage's digest (the 4 ranks' joined) on every run
+# so far, by torch version (the card machine's host;
+# tools/mesh_f64_probe.py prints them)
+MESH_CPU_STAGED = "qwen2-0.5b"
 MESH_CPU_USUAL_DIGEST = {"2.11.0+cu128": "8cbb086091f55e48"}
+MESH_CPU_USUAL_STAGES = {"2.11.0+cu128": {
+    "draw": "93699ba335be93f5",
+    "masters": "2fa970951a60394a",
+    "batch": "9ed33224c0d12e93",
+    "embed": "1b28e3d953485375",
+    "layer 0 attn q": "3b664a5b16a7d801",
+    "layer 0 attn k": "76c7ef52d5f7d9e8",
+    "layer 0 attn v": "fa29a01f551cb778",
+    "layer 0 attn rope q": "d716abba9f03ba34",
+    "layer 0 attn rope k": "0106c9f224039dda",
+    "layer 0 attn q rows": "c6f92d99fd8bbb67",
+    "layer 0 attn scores": "64546ace56ad2204",
+    "layer 0 attn weights": "1c7e0ccf5b0fb4d2",
+    "layer 0 attn chunk": "07e8cc4e0603b3fd",
+    "layer 0 attn core": "c34085ea37893a4c",
+    "layer 0 attn": "da861e3da9f2a7e8",
+    "layer 0 mlp": "e3352d1f5d419127",
+    "layer 0": "e73f04e234c71178",
+    "layer 1 attn q": "6cc7a91398888678",
+    "layer 1 attn k": "20b1eed893160b2f",
+    "layer 1 attn v": "e2eec09b43b9a28e",
+    "layer 1 attn rope q": "94c482ca7f9fe7e3",
+    "layer 1 attn rope k": "1388cf05c19a905b",
+    "layer 1 attn q rows": "6acbd62e24bb2e42",
+    "layer 1 attn scores": "0bef3d71f107e1cb",
+    "layer 1 attn weights": "77fb93a6202cbf84",
+    "layer 1 attn chunk": "4ff3bd3fb909a51a",
+    "layer 1 attn core": "8af084e46db943c7",
+    "layer 1 attn": "b84fde3ebaee7e3c",
+    "layer 1 mlp": "aa1d3af95942e6da",
+    "layer 1": "06e902ce2f823557",
+    "final_norm": "6afcfaadd2ecf79c",
+    "logits": "ba9ba10949c21f29",
+    "loss": "8aa7416135600c23",
+    "grad blocks/attn/bk": "5f56ad9e468cd3db",
+    "grad blocks/attn/bq": "0f8fb0d12c8910f1",
+    "grad blocks/attn/bv": "b87ef665f3f74def",
+    "grad blocks/attn/wk": "f1c32a1a5e0bb0dd",
+    "grad blocks/attn/wo": "aba0e5bcaca641a9",
+    "grad blocks/attn/wq": "7d36bdd8c3fbc217",
+    "grad blocks/attn/wv": "082cf34a20e15b6b",
+    "grad blocks/mlp/w_down": "281d3834f5c07feb",
+    "grad blocks/mlp/w_gate": "638cf790ac16b59c",
+    "grad blocks/mlp/w_up": "8f21b1d25440447d",
+    "grad blocks/norm1": "bd1e15dc37e97ce5",
+    "grad blocks/norm2": "fa9fd478ff76c679",
+    "grad embed": "51fa8df26cc3a7c2",
+    "grad final_norm": "faaba0a5e9612bcc",
+    "params": "74a5bbb114d046cf"}}
+# olmoe's f64 CPU forward (``moe_card_vs_cpu``): each stage's digest
+# (the f64 masters, the tokens, each layer's attention stages, router
+# probabilities, MoE and output, the final norm, the logits) on every
+# fresh process but the second results (tools/moe_f64_probe.py
+# --cpu-processes prints them), by torch version
+MOE_CPU_USUAL_STAGES = {"2.11.0+cu128": {
+    "masters": "e95210a8c5f6d76c",
+    "tokens": "5245cacb7489044d",
+    "embed": "9b878214fc49abbe",
+    "layer 0 attn q": "42624f521a9db50f",
+    "layer 0 attn k": "441829662a29082d",
+    "layer 0 attn v": "c516bfb30b5478a3",
+    "layer 0 attn rope q": "e4b225b4921dac24",
+    "layer 0 attn rope k": "1a80575857adf312",
+    "layer 0 attn q rows": "48b3d7cf79970492",
+    "layer 0 attn scores": "fc7636a6f99aaee2",
+    "layer 0 attn weights": "084f3b0453a2b06b",
+    "layer 0 attn chunk": "b7a5e0c717c574e9",
+    "layer 0 attn core": "11a39effeedb5233",
+    "layer 0 attn": "247f7d87273df7f0",
+    "layer 0 router": "5edf55e482654ea1",
+    "layer 0 moe": "041f3cd0bd8f54c8",
+    "layer 0": "86951204ae698844",
+    "layer 1 attn q": "7f6d543af5a1c708",
+    "layer 1 attn k": "224fcc68983f870e",
+    "layer 1 attn v": "1a2944b1ce016c24",
+    "layer 1 attn rope q": "23ec8ba4a3f8cce2",
+    "layer 1 attn rope k": "788b61036bcf8cc9",
+    "layer 1 attn q rows": "4b1a7eed7df6f6a2",
+    "layer 1 attn scores": "4b020f8e6433f456",
+    "layer 1 attn weights": "246aebf3cd788f64",
+    "layer 1 attn chunk": "92c1237367e813b0",
+    "layer 1 attn core": "90d773a94c7e6673",
+    "layer 1 attn": "bdd1abcb7fa948dd",
+    "layer 1 router": "a32dc942ccbf903b",
+    "layer 1 moe": "29ebf002dba90b70",
+    "layer 1": "b9eec19c79eebd4c",
+    "final_norm": "8074f498bc728822",
+    "logits": "20d0cdbb1be0a69c"}}
 # this process's environment before any phase ran, for ranks spawned from
 # a fresh interpreter
 ENV_AT_START = dict(os.environ)
@@ -1537,12 +1635,14 @@ def profiled_steps(eng, toks, n):
     return device_trace(steps, n)
 
 
-def decode_and_forward(cfg, params, toks):
+def decode_and_forward(cfg, params, toks, stages=None):
     """The logits over ``toks`` (B, S) from S ``decode_step`` calls and
-    from one ``forward``, on the tensors' device."""
+    from one ``forward``, on the tensors' device; ``stages`` (a
+    ``Stages``) digests the forward's."""
     dev = toks.device
     B, S = toks.shape
-    full = M.forward(cfg, params, {"tokens": toks})
+    with stages or contextlib.nullcontext():
+        full = M.forward(cfg, params, {"tokens": toks})
     cache = M.init_cache(cfg, B, S, dev)
     dec = torch.stack([M.decode_step(
         cfg, params, cache, toks[:, t:t + 1],
@@ -1738,7 +1838,9 @@ def moe_card_vs_cpu(arch, n_layers) -> dict:
     reading adds ``moe_f64_ops``' comparison op by op), the CPU side's
     digests printed (``cpu_float64_digest``: its decode and forward
     logits and its picks, hashed as ``tools/moe_f64_probe.py
-    --cpu-processes`` hashes them); f32 by relative
+    --cpu-processes`` hashes them; ``cpu_float64_stages``: each stage of
+    its forward, :func:`moe_cpu_stages`, beside the usual ones); f32 by
+    relative
     RMS within ``F32_GAP_RATIO`` times the CPU's f32 error (its f32
     logits against its f64 ones).  (Decode differs from forward by the
     reference's design: a step's group is the batch, so its capacity is
@@ -1749,15 +1851,18 @@ def moe_card_vs_cpu(arch, n_layers) -> dict:
     toks = decode_tokens(cfg)
     routes = []
 
-    def run(name, where):
+    def run(name, where, stages=None):
         c = dataclasses.replace(cfg, dtype=name)
         p = M._cast(masters if where == "card" else host, DTYPES[name])
         t = toks if where == "card" else toks.cpu()
-        got, r = routed(lambda: decode_and_forward(c, p, t))
+        got, r = routed(lambda: moe_cpu_run(c, p, t, stages)
+                        if stages else decode_and_forward(c, p, t))
         routes.append(r)
         return [a.cpu() for a in got]
 
-    runs = {("float64", "cpu"): run("float64", "cpu")}
+    stages = Stages()
+    runs = {("float64", "cpu"): run("float64", "cpu", stages)}
+    staged = moe_cpu_stages(stages)
     f64 = {"decode": [], "forward": []}
     for rep in range(MOE_F64_REPS):
         card = run("float64", "card")
@@ -1769,7 +1874,8 @@ def moe_card_vs_cpu(arch, n_layers) -> dict:
                     want, F64_TOL))
             except AssertionError as e:
                 raise AssertionError(
-                    f"{e}; readings so far {f64}; op by op "
+                    f"{e}; readings so far {f64}; the CPU side's stages "
+                    f"{staged['parted_from_usual']}; op by op "
                     f"{moe_f64_ops(cfg, masters, host, toks)}") from e
     for where in ("card", "cpu"):
         runs["float32", where] = run("float32", where)
@@ -1786,7 +1892,8 @@ def moe_card_vs_cpu(arch, n_layers) -> dict:
            "routes_equal": True,
            "cpu_float64_digest": {"decode": sha16([dec64]),
                                   "forward": sha16([full64]),
-                                  "picks": sha16(routes[0])}}
+                                  "picks": sha16(routes[0])},
+           "cpu_float64_stages": staged}
     for i, what in enumerate(("decode", "forward")):
         r64 = {"max_abs_err": max(f64[what]), "reps": MOE_F64_REPS,
                "max_abs_err_by_rep": f64[what], "tol": F64_TOL}
@@ -1804,6 +1911,28 @@ def moe_card_vs_cpu(arch, n_layers) -> dict:
     out["decode_vs_forward_max_abs"] = float((dec - full).abs().max())
     out["max_abs_logit"] = float(full.abs().max())
     return out
+
+
+def moe_cpu_run(cfg, params, toks, stages):
+    """``decode_and_forward`` as olmoe's f64 CPU side runs it, its stages
+    digested into ``stages``: the masters as cast, the tokens, then the
+    forward's."""
+    stages("masters", tree_leaves(params))
+    stages("tokens", toks)
+    return decode_and_forward(cfg, params, toks, stages)
+
+
+def moe_cpu_stages(stages) -> dict:
+    """What the olmoe line prints of its CPU side's stages: each stage's
+    digest, the usual ones (``MOE_CPU_USUAL_STAGES``) and the first
+    stage at which this run parts from them (None where this torch has no
+    usual digests), and the digests' seconds."""
+    usual = MOE_CPU_USUAL_STAGES.get(torch.__version__)
+    return {"stages": {r[0]: r[1] for r in stages.rows},
+            "usual_known": usual is not None,
+            "parted_from_usual": None if usual is None
+            else parted_stage(stages.rows, usual),
+            "digests_s": stages.seconds, "waited_s": stages.waited}
 
 
 def sha16(ts) -> str:
@@ -2714,7 +2843,8 @@ def mesh_dryrun(launcher, started) -> dict:
             "waited_s": started["waited_s"]}
 
 
-def mesh_cpu_rank(rank, store, out, cases, record=None):
+def mesh_cpu_rank(rank, store, out, cases, record=None,
+                  staged=MESH_CPU_STAGED):
     """One of 4 CPU ranks: each case of ``mesh_cpu_case`` (its arch's
     config at full width, cut to ``MESH_CPU_LAYERS``, in f64) on a (2, 2)
     mesh: one train step from seed-1 masters on step 0's batch, as
@@ -2722,10 +2852,14 @@ def mesh_cpu_rank(rank, store, out, cases, record=None):
     ``adamw_update`` from a fresh state).  Each rank saves the loss, the
     grad norm, and its own shards of every gradient and updated parameter
     with their places (``<out>/<arch>.<rank>.pt``): gathering them over
-    gloo would take longer than the step.  The case of arch ``record``
-    runs under the op recorder (``repro_torch.launch.oplog.OpLog``),
-    whose rows go to ``<out>/ops.<arch>.<rank>.json.gz`` and whose op
-    count and seconds go with the results."""
+    gloo would take longer than the step.  The case of arch ``staged``
+    digests its own part of each stage (``Stages``: the f32 draw, the f64
+    masters, the batch, each layer's activations, the logits, the loss,
+    each gradient, the updated parameters), whose rows and seconds go
+    with the results.  The case of arch ``record`` runs under the op
+    recorder (``repro_torch.launch.oplog.OpLog``), whose rows go to
+    ``<out>/ops.<arch>.<rank>.json.gz`` and whose op count and seconds go
+    with the results."""
     from torch.distributed.tensor._utils import \
         compute_local_shape_and_global_offset
     torch.set_num_threads(2)
@@ -2741,15 +2875,29 @@ def mesh_cpu_rank(rank, store, out, cases, record=None):
 
         for arch, (cfg, pipe) in cases.items():
             log = OpLog() if arch == record else contextlib.nullcontext()
-            with use_sharding(mesh), log:
-                params = mesh_cpu_masters(cfg)
-                loss, grads = loss_and_grads(cfg, params, pipe.device_batch(
-                    0, "cpu", batch_shardings(cfg, pipe.shape)), remat=False)
+            stages = Stages() if arch == staged else None
+            with use_sharding(mesh), log, stages or contextlib.nullcontext():
+                params = mesh_cpu_masters(cfg, stages)
+                batch = pipe.device_batch(0, "cpu",
+                                          batch_shardings(cfg, pipe.shape))
+                if stages:
+                    stages("batch", [batch[k] for k in sorted(batch)])
+                loss, grads = loss_and_grads(cfg, params, batch, remat=False)
+                if stages:
+                    stages("loss", loss)
+                    for name, g in zip(leaf_names(grads), tree_leaves(grads)):
+                        stages(f"grad {name}", g)
                 new, _, info = adamw_update(AdamWConfig(), params, grads,
                                             init_opt_state(params))
+                if stages:
+                    stages("params", tree_leaves(new))
                 part = {"loss": full(loss), "grad_norm": info["grad_norm"],
                         "grads": shards(grads), "params": shards(new)}
                 del params, grads, new
+            if stages:
+                part["stages"] = {"rows": stages.rows,
+                                  "seconds": stages.seconds,
+                                  "waited": stages.waited}
             if arch == record:
                 part["recorder"] = {"ops": len(log.rows),
                                     "seconds": log.seconds}
@@ -2782,14 +2930,18 @@ def mesh_cpu_whole(work, arch):
     shard that two ranks hold (a replica over a mesh axis) is taken from
     the first and held bit for bit against the other's; ``replicas_differ``
     lists each (kind, leaf index, rank) where they part.  ``recorder``:
-    each rank's op count and recorder seconds, where it was recorded."""
-    whole, written = {"replicas_differ": [], "recorder": []}, set()
+    each rank's op count and recorder seconds, where it was recorded;
+    ``stages``: each rank's stage rows and seconds, where it digested
+    them."""
+    whole, written = {"replicas_differ": [], "recorder": [],
+                      "stages": []}, set()
     for rank in range(4):
         part = torch.load(work / f"{arch}.{rank}.pt")
         if rank == 0:
             whole.update({k: part[k] for k in ("loss", "grad_norm")})
-        if "recorder" in part:
-            whole["recorder"].append(part["recorder"])
+        for key in ("recorder", "stages"):
+            if key in part:
+                whole[key].append(part[key])
         for key in ("grads", "params"):
             if rank == 0:
                 whole[key] = [torch.empty(shape, dtype=a.dtype)
@@ -2832,12 +2984,44 @@ def mesh_cpu_case(arch):
         "t", MESH_CPU_SEQ, MESH_CPU_BATCH, "train"))
 
 
-def mesh_cpu_masters(cfg):
+def mesh_cpu_masters(cfg, stages=None):
     """Seed-1 masters of ``cfg`` on the CPU in f64, laid out on the active
-    mesh (each rank keeps its shards of the f32 draw, then widens them)."""
-    params = distribute_params(cfg, init_params(
+    mesh (each rank keeps its shards of the f32 draw, then widens them);
+    ``stages`` digests the draw's shards and the masters."""
+    draw = distribute_params(cfg, init_params(
         cfg, torch.Generator().manual_seed(1), "cpu"))
-    return tree_map(lambda a: a.to(torch.float64), params)
+    if stages:
+        stages("draw", tree_leaves(draw))
+    params = tree_map(lambda a: a.to(torch.float64), draw)
+    if stages:
+        stages("masters", tree_leaves(params))
+    return params
+
+
+def mesh_cpu_stage_rows(whole) -> list:
+    """The 4 ranks' stage rows as one record: a row a stage, its digest
+    the ranks' digests joined, its parts the ranks' digests."""
+    rows = [s["rows"] for s in whole["stages"]]
+    if any([r[0] for r in x] != [r[0] for r in rows[0]] for x in rows):
+        raise AssertionError("mesh cpu: the ranks digested other stages")
+    return [[r[0], joined([x[i][1] for x in rows]), [x[i][1] for x in rows]]
+            for i, r in enumerate(rows[0])]
+
+
+def mesh_cpu_stages(whole) -> dict:
+    """What the mesh line prints of the staged ranks' stages: each stage's
+    digests, one a rank; the usual ones (``MESH_CPU_USUAL_STAGES``) and the
+    first stage at which this run parts from them (None where this torch
+    has no usual digests); the most seconds a rank spent on its digests,
+    and on the waits for pending collectives they made first."""
+    rows = mesh_cpu_stage_rows(whole)
+    usual = MESH_CPU_USUAL_STAGES.get(torch.__version__)
+    return {"stages": {r[0]: r[2] for r in rows},
+            "usual_known": usual is not None,
+            "parted_from_usual": None if usual is None
+            else parted_stage(rows, usual),
+            "digests_s": max(s["seconds"] for s in whole["stages"]),
+            "waited_s": max(s["waited"] for s in whole["stages"])}
 
 
 def mesh_cpu() -> dict:
@@ -2849,15 +3033,17 @@ def mesh_cpu() -> dict:
     card's, the grad norm and every updated parameter against AdamW on
     the card from the ranks' gradients, each held at ``MESH_CPU_RTOL``,
     relative by norm; every shard two ranks hold, bit for bit between
-    them.  The ranks of ``MESH_CPU_RECORDED`` run under the op recorder in
-    every run: the line gives their result's digest (beside the usual
-    one, ``MESH_CPU_USUAL_DIGEST``), each rank's op count and the
-    recorder's seconds.  A failing hold first reads
-    :func:`mesh_cpu_parting` (printed as its own line) and a second card
-    step (:func:`mesh_cpu_again`), then raises."""
+    them.  The ranks run plain; those of ``MESH_CPU_STAGED`` digest each
+    stage in every run: the line gives their result's digest (beside the
+    usual one, ``MESH_CPU_USUAL_DIGEST``) and each stage's digests, one a
+    rank, with the first stage at which they part from the usual ones
+    (:func:`mesh_cpu_stages`).  A failing hold first reads
+    :func:`mesh_cpu_parting` (its lines printed: the first parted stage,
+    then the recorded respawns' first parting op) and a second card step
+    (:func:`mesh_cpu_again`), then raises."""
     work = ROOT / "build" / "mesh_cpu"
     cases = {arch: mesh_cpu_case(arch) for arch in MESH_CPU_ARCHS}
-    ranks_s = mesh_cpu_spawn(work, cases, MESH_CPU_RECORDED)
+    ranks_s = mesh_cpu_spawn(work, cases, None)
     out = {"mesh": {"data": 2, "model": 2}, "backend": "gloo",
            "reference": "one rank, no mesh, on the card",
            "n_layers": MESH_CPU_LAYERS, "batch": MESH_CPU_BATCH,
@@ -2874,21 +3060,18 @@ def mesh_cpu() -> dict:
 
         params, loss, grads = card_step()
         g = mesh_cpu_whole(work, arch)
-        # the recorded case's digest in every run; another's (seconds of
+        # the staged case's digest in every run; another's (seconds of
         # hashing at olmoe's width) only where its hold fails
-        digest = mesh_cpu_digest(g) if arch == MESH_CPU_RECORDED else None
-        if arch == MESH_CPU_RECORDED:
+        digest = mesh_cpu_digest(g) if arch == MESH_CPU_STAGED else None
+        if arch == MESH_CPU_STAGED:
             usual = MESH_CPU_USUAL_DIGEST.get(torch.__version__)
-            out["recorded"] = {
+            out["staged"] = {
                 "arch": arch, "ranks_digest": digest, "usual_digest": usual,
                 "digest_is_usual": None if usual is None
-                else digest == usual,
-                "ops": [r["ops"] for r in g["recorder"]],
-                "recorder_s": max(r["seconds"] for r in g["recorder"])}
+                else digest == usual, **mesh_cpu_stages(g)}
         names = leaf_names(params)
         if g["replicas_differ"]:
-            parting = mesh_cpu_parting(work, cases, arch,
-                                       digest or mesh_cpu_digest(g))
+            parting = mesh_cpu_parting(work, cases, arch, g, digest)
             raise AssertionError(
                 f"mesh cpu {arch}: ranks that hold one shard part on "
                 f"{[(k, names[i], r) for k, i, r in g['replicas_differ']]}"
@@ -2914,8 +3097,7 @@ def mesh_cpu() -> dict:
             a, b = a.double().cuda(), b.double()
             err = float((a - b).norm() / b.norm().clamp_min(1e-300))
             if not err <= MESH_CPU_RTOL:
-                parting = mesh_cpu_parting(work, cases, arch,
-                                           digest or mesh_cpu_digest(g))
+                parting = mesh_cpu_parting(work, cases, arch, g, digest)
                 again = mesh_cpu_again(card_step, grads, g, names)
                 raise AssertionError(f"mesh cpu {arch} {name}: relative "
                                      f"error {err}; {again}; {parting}")
@@ -2948,52 +3130,63 @@ C.mesh_cpu_spawn(Path(sys.argv[2]), cases, sys.argv[4] or None)
 """
 
 
-def mesh_cpu_parting(work, cases, arch, digest) -> dict:
+def mesh_cpu_parting(work, cases, arch, whole, digest=None) -> dict:
     """What a failing hold of ``mesh_cpu`` reads from the ranks, printed
-    before it raises: the ranks of ``arch`` spawned a second time from
-    this process; where that spawn gives the first one's digest again, a
-    third time from a fresh interpreter (this process's environment as it
-    was before any phase ran).  A spawn is recorded as the first was:
-    only ``MESH_CPU_RECORDED``'s.  Each spawn's digest, whether it is the
-    usual one, and, where the ranks were recorded, for each rank the
-    first op at which the first spawn's record parts from the last
-    spawn's (``first_parting``: index, op, site, shapes and dtypes,
-    whether its inputs agreed, and the size of the difference of its
-    outputs)."""
+    before it raises.  First, as a line of its own
+    (``mesh_cpu_parted_stage``), the failing run's digest and, for the
+    staged case, the first stage at which its stages part from the usual
+    ones.  Then the ranks of ``arch`` are spawned twice more, under the op
+    recorder for the staged case: from this process, and from a fresh
+    interpreter (this process's environment as it was before any phase
+    ran).  Each respawn's digest, whether it is the usual one, and where
+    its stages first part from the failing run's (``first_parted``: the
+    stage and the first rank that parts there); with two records, for
+    each rank the first op at which the respawns' records part
+    (``first_parting``: index, op, site, shapes and dtypes, whether its
+    inputs agreed, and the size of the difference of its outputs)."""
+    digest = digest or mesh_cpu_digest(whole)
     usual = MESH_CPU_USUAL_DIGEST.get(torch.__version__)
-    out = {"arch": arch, "first": {"digest": digest,
-                                   "usual": usual and digest == usual},
-           "spawns": []}
-    record = arch if arch == MESH_CPU_RECORDED else None
+    staged = arch == MESH_CPU_STAGED and bool(whole["stages"])
+    rows = mesh_cpu_stage_rows(whole) if staged else None
+    first = {"arch": arch, "digest": digest,
+             "usual": usual and digest == usual}
+    if staged:
+        table = MESH_CPU_USUAL_STAGES.get(torch.__version__)
+        first["parted_from_usual"] = None if table is None \
+            else parted_stage(rows, table)
+    emit({"mesh_cpu_parted_stage": first})
+    out = {"arch": arch, "first": first, "spawns": []}
+    record = arch if staged else None
+    one = {arch: cases[arch]}
+    records = []
+
+    def read(where, how, wall):
+        got = mesh_cpu_whole(where, arch)
+        other = mesh_cpu_digest(got)
+        spawn = {"from": how, "digest": other,
+                 "usual": usual and other == usual, "wall_s": wall}
+        if staged:
+            spawn["first_parted"] = parted_stage(rows,
+                                                 mesh_cpu_stage_rows(got))
+            records.append(mesh_cpu_ops(where, arch))
+        out["spawns"].append(spawn)
+
     again = work.with_name(f"{work.name}_again")
-    wall = mesh_cpu_spawn(again, {arch: cases[arch]}, record)
-    other = mesh_cpu_digest(mesh_cpu_whole(again, arch))
-    out["spawns"].append({"from": "this process", "digest": other,
-                          "usual": usual and other == usual,
-                          "wall_s": wall})
-    if other == digest:
-        fresh = work.with_name(f"{work.name}_fresh")
-        case = work.with_name(f"{work.name}_case.pt")
-        torch.save({arch: cases[arch]}, case)
-        t0 = time.perf_counter()
-        run = subprocess.run([sys.executable, "-c", FRESH_RANKS_SCRIPT,
-                              str(ROOT), str(fresh), str(case),
-                              record or ""],
-                             env=ENV_AT_START, capture_output=True,
-                             text=True)
-        if run.returncode:
-            out["spawns"].append({"from": "a fresh interpreter",
-                                  "failed": run.stderr[-2000:]})
-        else:
-            again = fresh
-            other = mesh_cpu_digest(mesh_cpu_whole(fresh, arch))
-            out["spawns"].append({"from": "a fresh interpreter",
-                                  "digest": other,
-                                  "usual": usual and other == usual,
-                                  "wall_s": time.perf_counter() - t0})
-    if record:
-        out["ranks"] = [first_parting(a, b) for a, b in zip(
-            mesh_cpu_ops(work, arch), mesh_cpu_ops(again, arch))]
+    read(again, "this process", mesh_cpu_spawn(again, one, record))
+    fresh = work.with_name(f"{work.name}_fresh")
+    case = work.with_name(f"{work.name}_case.pt")
+    torch.save(one, case)
+    t0 = time.perf_counter()
+    run = subprocess.run([sys.executable, "-c", FRESH_RANKS_SCRIPT,
+                          str(ROOT), str(fresh), str(case), record or ""],
+                         env=ENV_AT_START, capture_output=True, text=True)
+    if run.returncode:
+        out["spawns"].append({"from": "a fresh interpreter",
+                              "failed": run.stderr[-2000:]})
+    else:
+        read(fresh, "a fresh interpreter", time.perf_counter() - t0)
+    if len(records) == 2:
+        out["ranks"] = [first_parting(a, b) for a, b in zip(*records)]
     emit({"mesh_cpu_parting": out})
     return out
 

@@ -33,7 +33,16 @@ here).  It keeps one row an op::
 The recorder only reads: its own reductions run with the mode off, in
 scratch buffers of its own.  :attr:`OpLog.seconds` is the time they took.
 :func:`first_parting` compares two records of one computation.
+
+:class:`Stages` is the plain run's counterpart: no dispatch mode, only a
+digest of the rank's own part of each stage the caller names (the
+draw, the masters, the batch, the loss, each gradient) and of each
+activation the model hands ``models.layers.tap`` (the embedding, each
+layer's attention, router, MoE or MLP and output, the final norm, the
+logits).  :func:`parted_stage` names the first stage at which two such
+records part.
 """
+import hashlib
 import math
 import sys
 import sysconfig
@@ -44,13 +53,12 @@ from pathlib import Path
 import torch
 from torch.distributed._functional_collectives import AsyncCollectiveTensor
 from torch.distributed.tensor import DTensor
-from torch.utils._python_dispatch import TorchDispatchMode
+from torch.utils._python_dispatch import TorchDispatchMode, \
+    _disable_current_modes
 
 AROUND = 3          # ops shown before and after the first that parts
 _NOT_SITES = (str(Path(torch.__file__).parent), sysconfig.get_paths()["stdlib"],
               __file__)
-_INT_OF_SIZE = {8: torch.int64, 4: torch.int32, 2: torch.int16,
-                1: torch.uint8}
 
 
 def _plain(t) -> bool:
@@ -83,15 +91,15 @@ def _site() -> str:
 
 
 class Digest:
-    """A 64-bit hash of a tensor's bytes: its words (8-byte words for
-    8-byte elements, else each element widened) in rows of ``ROW``, each
-    row's sum of word times an odd weight, then the rows' sum of row sum
-    times an odd weight, all modulo 2**64.  Every word's weight is odd, so
-    a change in any one word changes the hash.  Computed with torch's own
-    integer ops in blocks, so that its scratch stays in cache."""
+    """A 64-bit hash of a tensor's bytes: its bytes read as 8-byte words
+    (the last few bytes, where they do not fill a word, each widened) in
+    rows of ``ROW``, each row's sum of word times an odd weight, then the
+    rows' sum of row sum times an odd weight, all modulo 2**64.  Every
+    word's weight is odd, so a change in any one word changes the hash.
+    Computed with torch's own integer ops: the rows' sums in one
+    matrix-vector product, which needs no scratch."""
 
     ROW = 1 << 14
-    BLOCK = 64          # rows a pass
 
     def __init__(self) -> None:
         g = torch.Generator().manual_seed(0x5EED)
@@ -99,7 +107,6 @@ class Digest:
                                generator=g, dtype=torch.int64) | 1
         self.v = torch.empty(0, dtype=torch.int64)
         self.g = g
-        self.buf = torch.empty(self.BLOCK, self.ROW, dtype=torch.int64)
 
     def _row_weights(self, n: int) -> torch.Tensor:
         if self.v.numel() < n:
@@ -108,28 +115,35 @@ class Digest:
             self.v = torch.cat([self.v, more])
         return self.v[:n]
 
+    @staticmethod
+    def _words(t: torch.Tensor):
+        """``t``'s bytes as int64 words, and the bytes after the last
+        whole word, each widened."""
+        x = t.contiguous().reshape(-1)
+        if x.storage_offset() * x.element_size() % 8:
+            x = x.clone()
+        b = x.view(torch.uint8)
+        whole = b.numel() // 8 * 8
+        return b[:whole].view(torch.int64), b[whole:].to(torch.int64)
+
     def __call__(self, t: torch.Tensor) -> int:
         t = t.detach()
         if t.is_conj() or t.is_neg():
             t = t.resolve_conj().resolve_neg()
         if t.is_complex():
             t = torch.view_as_real(t)
-        x = t.contiguous().reshape(-1)
-        x = x.view(_INT_OF_SIZE[x.element_size()])
-        if x.dtype != torch.int64:
-            x = x.to(torch.int64)
+        x, rest = self._words(t)
         n = x.numel()
-        rows = -(-n // self.ROW)
+        rows = -(-n // self.ROW) + bool(rest.numel())
         sums = torch.empty(rows, dtype=torch.int64)
         full = n // self.ROW
-        body = x[:full * self.ROW].view(full, self.ROW)
-        for i in range(0, full, self.BLOCK):
-            b = body[i:i + self.BLOCK]
-            part = torch.mul(b, self.w, out=self.buf[:b.shape[0]])
-            torch.sum(part, 1, out=sums[i:i + b.shape[0]])
-        if full < rows:
+        torch.mv(x[:full * self.ROW].view(full, self.ROW), self.w,
+                 out=sums[:full])
+        if full * self.ROW < n:
             tail = x[full * self.ROW:]
             sums[full] = (tail * self.w[:tail.numel()]).sum()
+        if rest.numel():
+            sums[-1] = (rest * self.w[:rest.numel()]).sum()
         return int((sums * self._row_weights(rows)).sum())
 
 
@@ -303,3 +317,118 @@ def first_parting(a: list, b: list) -> dict:
         return {"index": min(len(a), len(b)), "kind": "length",
                 "ops": [len(a), len(b)]}
     return {"index": None, "kind": "equal", "ops": len(a)}
+
+
+# ------------------------------------------------------------ stage digests
+def hex16(d: int) -> str:
+    """A :class:`Digest` as 16 hex digits, mixed (f64 values widened from
+    f32 leave the sum's low bits zero)."""
+    return hashlib.sha256((d % (1 << 64)).to_bytes(8, "little")
+                          ).hexdigest()[:16]
+
+
+def joined(digests) -> str:
+    """One 16-hex digest of several, in order."""
+    return hashlib.sha256(" ".join(digests).encode()).hexdigest()[:16]
+
+
+def local_part(t: torch.Tensor) -> torch.Tensor:
+    """This rank's part of ``t``: a DTensor's local shard (its collective
+    waited on, as the next op that reads it would), else ``t``."""
+    with torch.no_grad():
+        if isinstance(t, DTensor):
+            t = t.to_local()
+        if isinstance(t, AsyncCollectiveTensor):
+            t = t.trigger_wait()
+        return t.detach()
+
+
+class Stages:
+    """A digest (:class:`Digest`, 16 hex digits) of each stage of a plain
+    run, in order: ``rows``, one ``[label, digest, parts]`` a stage, where
+    ``parts`` is each tensor's digest for a stage of several tensors
+    (else None).  The caller names its own stages (``stages(label,
+    tensors)``); while the record is entered, the model's activations
+    come through ``models.layers.tap`` and are labelled by layer: the
+    ``layer`` tap ends a layer, whose inner stages (all but ``OUTSIDE``)
+    carry its index; a label seen before (a chunk of attention rows, a
+    recomputed layer) gets its count, ``#2`` on.  With ``keep`` the
+    tensors of a stage of at most ``keep`` elements are kept (``kept``,
+    label to clones).  It only reads; :attr:`seconds` is what the
+    digests took, :attr:`waited` what the waits for a DTensor's pending
+    collective took (the next op would have waited for it)."""
+
+    OUTSIDE = ("embed", "final_norm", "logits")
+
+    def __init__(self, keep: int = 0) -> None:
+        self.rows, self.kept, self.keep = [], {}, keep
+        self.seconds = self.waited = 0.0
+        self.layer = 0
+        self.seen = {}
+        self.digest = Digest()
+        self._saved = None
+
+    def __call__(self, label: str, tensors) -> None:
+        t0 = time.perf_counter()
+        if isinstance(tensors, torch.Tensor):
+            tensors = [tensors]
+        parts = [local_part(t) for t in tensors]
+        t1 = time.perf_counter()
+        self.waited += t1 - t0
+        # the digests under no dispatch mode: a recorder running beside
+        # this record (OpLog) sees the waits above, not the hashing
+        with _disable_current_modes():
+            digests = [hex16(self.digest(t)) if t.numel() else "0" * 16
+                       for t in parts]
+            if self.keep and sum(t.numel() for t in parts) <= self.keep:
+                self.kept[label] = [t.clone() for t in parts]
+        one = len(digests) == 1
+        self.rows.append([label, digests[0] if one else joined(digests),
+                          None if one else digests])
+        self.seconds += time.perf_counter() - t1
+
+    def tap(self, name: str, x: torch.Tensor) -> None:
+        if name == "layer":
+            label, self.layer = f"layer {self.layer}", self.layer + 1
+        elif name in self.OUTSIDE:
+            label = name
+        else:
+            label = f"layer {self.layer} {name}"
+        n = self.seen[label] = self.seen.get(label, 0) + 1
+        self(label if n == 1 else f"{label} #{n}", x)
+
+    def __enter__(self) -> "Stages":
+        # by its full name: tools load this file on its own
+        from repro_torch.models import layers
+        self._saved, layers.TAP = layers.TAP, self.tap
+        return self
+
+    def __exit__(self, *exc) -> None:
+        from repro_torch.models import layers
+        layers.TAP = self._saved
+
+
+def parted_stage(a: list, b) -> dict:
+    """Where record ``a`` (:class:`Stages` rows) first parts from ``b``
+    (rows, or a dict of label to digest, or to its parts' digests, as a
+    table of usual digests keeps them): ``kind`` "equal", "digest" (the
+    label's digest differs; ``part``, the first part that differs where
+    both give parts), "sequence" (another label there) or "length"."""
+    if isinstance(b, dict):
+        b = [[label, d, None] if isinstance(d, str)
+             else [label, joined(d), list(d)] for label, d in b.items()]
+    for i, (x, y) in enumerate(zip(a, b)):
+        if x[0] != y[0]:
+            return {"index": i, "kind": "sequence", "stage": x[0],
+                    "other": y[0]}
+        if x[1] != y[1]:
+            part = None
+            if x[2] is not None and y[2] is not None:
+                part = next((j for j, (p, q) in enumerate(zip(x[2], y[2]))
+                             if p != q), None)
+            return {"index": i, "kind": "digest", "stage": x[0],
+                    "digest": x[1], "other": y[1], "part": part}
+    if len(a) != len(b):
+        return {"index": min(len(a), len(b)), "kind": "length",
+                "stages": [len(a), len(b)]}
+    return {"index": None, "kind": "equal", "stages": len(a)}

@@ -52,6 +52,21 @@ MASKED = -1e30
 MOE_GROUP = 256
 MOE_CAPACITY_FACTOR = 1.25
 SSM_CHUNK = 256
+# The stage tap: a callable handed each activation that :func:`tap` is
+# given, with its stage's name (the model's embedding; in each layer the
+# attention's q, k and v, q and k rotated, each chunk's scores, weights
+# and output, and its projected output; the router's probabilities, the
+# MoE or MLP and the layer's output; the final norm and the logits), or
+# None.  Set only while stage digests are read
+# (``repro_torch.launch.oplog.Stages``).
+TAP = None
+
+
+def tap(name: str, x: torch.Tensor) -> torch.Tensor:
+    """``x``, handed to :data:`TAP` as stage ``name`` where one is set."""
+    if TAP is not None:
+        TAP(name, x)
+    return x
 
 
 def _f32(x: torch.Tensor) -> torch.Tensor:
@@ -212,14 +227,15 @@ def _core_rows(q: torch.Tensor, keys: _Keys, r0: int, r1: int,
     softmax into ``w`` (B,K,G,c,S), the weights cast to v's dtype times
     v.  Returns the rows' output, (B,c,K,G,dh)."""
     B, _, K, G, _ = q.shape
-    scores = torch.bmm(_f32(_rows_of(q, r0, r1)) * keys.scale,
-                       keys.kt).view(w.shape)
+    rows = tap("attn q rows", _f32(_rows_of(q, r0, r1)) * keys.scale)
+    scores = tap("attn scores", torch.bmm(rows, keys.kt).view(w.shape))
     if keys.masked is not None:
         scores.masked_fill_(keys.masked[r0:r1], MASKED)
     torch.ops.aten._softmax.out(scores, -1, False, out=w)
     del scores
-    wv = w.to(keys.v.dtype).view(B * K, -1, w.shape[-1])
-    return _to_rows(torch.bmm(wv, keys.v), B, K, G)
+    wv = tap("attn weights", w).to(keys.v.dtype).view(B * K, -1,
+                                                      w.shape[-1])
+    return _to_rows(tap("attn chunk", torch.bmm(wv, keys.v)), B, K, G)
 
 
 class _AttentionCore(torch.autograd.Function):
@@ -361,7 +377,11 @@ def attention(cfg: ModelConfig, p: Params, x: torch.Tensor,
     k = shard(k, "batch", "seq", "kv_heads", None)
     v = shard(v, "batch", "seq", "kv_heads", None)
     q, k = _qk_norm(q, k, p, cfg.norm_eps)
+    for name, t in (("q", q), ("k", k), ("v", v)):
+        tap(f"attn {name}", t)
     q, k = apply_rope(cfg, q, k, positions)
+    tap("attn rope q", q)
+    tap("attn rope k", k)
     qg = view(q, (B, S, K, G, dh), "batch", "seq", "kv_heads", None, None)
 
     new_cache = None
@@ -400,7 +420,8 @@ def attention(cfg: ModelConfig, p: Params, x: torch.Tensor,
                     (qg.shape, heads + (None,)), (qg, heads + (None,)),
                     (k, heads), (v, heads))
 
-    out = view(out, (B, S, H * dh), "batch", "seq", "heads")
+    out = tap("attn core", view(out, (B, S, H * dh), "batch", "seq",
+                                "heads"))
     out = torch.einsum("bsh,hd->bsd", out, p["wo"])
     return shard(out, "batch", "seq", "embed"), new_cache
 
@@ -467,7 +488,7 @@ def _router_probs(cfg: ModelConfig, p: Params, x: torch.Tensor
     C = max(1, int(k * G / E * MOE_CAPACITY_FACTOR))
     logits = torch.einsum("ngd,de->nge", x.reshape(B * S // G, G, D),
                           p["w_router"].to(x.dtype))
-    return torch.softmax(_f32(logits), dim=-1), C
+    return tap("router", torch.softmax(_f32(logits), dim=-1)), C
 
 
 def _dispatch(gate_vals: torch.Tensor, gate_idx: torch.Tensor, E: int,

@@ -13,7 +13,9 @@ layer's next state, into the cache in place and returns the same cache
 dict.  ``forward(remat=True)`` recomputes each layer's activations in
 the backward pass (``torch.utils.checkpoint``), as the reference's
 ``jax.checkpoint`` does; the embedding's gradient is the reference's
-custom one (:class:`_EmbedLookup`).
+custom one (:class:`_EmbedLookup`).  Each stage's activation goes
+through ``layers.tap``, which hands it on only where a stage record is
+set (a hybrid's group counts as one layer).
 
 Under :func:`~repro_torch.models.sharding.use_sharding` the same code
 runs on DTensors: the parameters and the batch are laid out by their
@@ -34,7 +36,8 @@ from torch.autograd.function import once_differentiable
 from torch.utils.checkpoint import checkpoint
 
 from ..configs.base import ModelConfig
-from .layers import _f32, attention, mamba1, mamba2, mlp, moe, rms_norm
+from .layers import _f32, attention, mamba1, mamba2, mlp, moe, rms_norm, \
+    tap
 from .params import ParamSpec, tree_map
 from .sharding import active, local_shard, placements, replicate, \
     shard, spec_for, use_sharding
@@ -150,7 +153,7 @@ def _dense_block(cfg: ModelConfig, p: Tree, x: torch.Tensor,
     hybrid's shared block is one too (its params have an ``mlp``)."""
     h, _ = attention(cfg, p["attn"], rms_norm(x, p["norm1"], cfg.norm_eps),
                      positions, cache=cache, cache_pos=cache_pos)
-    x = x + h
+    x = x + tap("attn", h)
     return shard(x + _ffn(cfg, p, rms_norm(x, p["norm2"], cfg.norm_eps)),
                  "batch", "seq", "embed")
 
@@ -158,7 +161,9 @@ def _dense_block(cfg: ModelConfig, p: Tree, x: torch.Tensor,
 def _ffn(cfg: ModelConfig, p: Tree, xn: torch.Tensor) -> torch.Tensor:
     """A dense block's feed-forward: its MoE where it has one, else its
     MLP."""
-    return moe(cfg, p["moe"], xn) if "moe" in p else mlp(cfg, p["mlp"], xn)
+    if "moe" in p:
+        return tap("moe", moe(cfg, p["moe"], xn))
+    return tap("mlp", mlp(cfg, p["mlp"], xn))
 
 
 def _ssm_block(cfg: ModelConfig, p: Tree, x: torch.Tensor) -> torch.Tensor:
@@ -181,10 +186,10 @@ def _groups(cfg: ModelConfig, blocks: Tree) -> List[List[Tree]]:
 
 
 def _logits(cfg: ModelConfig, params: Tree, x: torch.Tensor) -> torch.Tensor:
-    x = rms_norm(x, params["final_norm"], cfg.norm_eps)
+    x = tap("final_norm", rms_norm(x, params["final_norm"], cfg.norm_eps))
     head = shard(params.get("lm_head", params["embed"]), "vocab", None)
-    return shard(_f32(torch.einsum("bsd,vd->bsv", x, head)),
-                 "batch", "seq", "vocab")
+    return tap("logits", shard(_f32(torch.einsum("bsd,vd->bsv", x, head)),
+                               "batch", "seq", "vocab"))
 
 
 def _remat(fn: Callable[..., torch.Tensor],
@@ -211,18 +216,18 @@ def forward(cfg: ModelConfig, params: Tree, batch: Tree,
     checkpoints each layer (the hybrid: each Mamba-2 layer, and each
     group with its shared block), which changes memory, not values."""
     params = _cast(params, _dtype(cfg))
-    x = _embed_tokens(cfg, params, batch)
+    x = tap("embed", _embed_tokens(cfg, params, batch))
     B, S, _ = x.shape
     positions = replicate(torch.arange(S, dtype=torch.int32,
                                        device=x.device).expand(B, S))
     if cfg.family in ("dense", "vlm", "audio", "moe"):
         body = _remat(lambda h, p: _dense_block(cfg, p, h, positions), remat)
         for p in layer_params(params["blocks"], cfg.n_layers):
-            x = body(x, p)
+            x = tap("layer", body(x, p))
     elif cfg.family == "ssm":
         body = _remat(lambda h, p: _ssm_block(cfg, p, h), remat)
         for p in layer_params(params["blocks"], cfg.n_layers):
-            x = body(x, p)
+            x = tap("layer", body(x, p))
     elif cfg.family == "hybrid":
         inner = _remat(lambda h, p: _mamba2_block(cfg, p, h), remat)
 
@@ -233,7 +238,7 @@ def forward(cfg: ModelConfig, params: Tree, batch: Tree,
 
         group_fn = _remat(group_fn, remat)
         for group in _groups(cfg, params["blocks"]):
-            x = group_fn(x, group)
+            x = tap("layer", group_fn(x, group))
     else:
         raise ValueError(cfg.family)
     return _logits(cfg, params, x)

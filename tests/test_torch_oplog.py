@@ -7,9 +7,12 @@ and site, its inputs agreeing, and a difference of the size made.  An
 input moved from outside is reported as inputs that differ; a view's
 digest is never a parting; the recorder changes no value.  Then
 ``chip_smoke.py``'s failure path at a reduced qwen2-0.5b on 4 gloo ranks:
-a first spawn whose record is altered at one op of one rank, a second
-spawn from this process with the same digest, a third from a fresh
-interpreter, and the report naming the altered op on that rank only.
+a first, plain spawn whose stage digests are altered at one stage of
+one rank, the report naming that stage against the usual digests; a
+second spawn from this process, recorded, whose record is altered at one
+op of one rank, a third from a fresh interpreter, recorded, both with
+the first's digest, and the report naming the altered op on that rank
+only.
 """
 import contextlib
 import copy
@@ -182,45 +185,70 @@ def chip_smoke():
 
 
 def test_failing_hold_report_names_the_parting_op(chip_smoke, tmp_path,
-                                                  capsys):
-    """The first spawn's record of rank 2 altered at one op (its first
+                                                  capsys, monkeypatch):
+    """The first spawn runs plain; its stage digests of rank 2 are
+    altered at ``layer 1`` (the usual ones are the unaltered run's).  The
+    second spawn's record of rank 2 is altered at one op (its first
     output one ulp larger in magnitude at its largest element, as a
-    second result would read there); the second spawn from this process
-    repeats the first's digest, so a third runs from a fresh interpreter;
-    the report holds the first spawn against the last."""
+    second result would read there); the third, from a fresh
+    interpreter, is not.  The report names the stage first, on a line of
+    its own, then holds the second spawn's record against the third's."""
     C = chip_smoke
     from repro_torch.configs import reduced_config
-    arch = C.MESH_CPU_RECORDED
+    arch = C.MESH_CPU_STAGED
     cfg = dataclasses.replace(reduced_config(C.get_arch(arch)),
                               dtype="float64")
     cases = {arch: (cfg, C.SyntheticTokenPipeline(cfg, C.ShapeConfig(
         "t", 32, 4, "train")))}
     work = tmp_path / "mesh_cpu"
-    C.mesh_cpu_spawn(work, cases, arch)
-    digest = C.mesh_cpu_digest(C.mesh_cpu_whole(work, arch))
-    path = work / f"ops.{arch}.2.json.gz"
-    with gzip.open(path, "rt") as f:
-        rows = json.load(f)
-    at = next(r[0] for r in rows if r[1] == "aten.bmm" and r[8][0]
-              and "[" in r[2])
-    ulp = float(np.spacing(rows[at][8][0][1]))
-    rows[at][6][0] += 1
-    rows[at][8][0][1] += ulp
-    with gzip.open(path, "wt") as f:
-        json.dump(rows, f)
+    C.mesh_cpu_spawn(work, cases, None)
+    assert not list(work.glob("ops.*"))             # the hold runs plain
+    whole = C.mesh_cpu_whole(work, arch)
+    digest = C.mesh_cpu_digest(whole)
+    monkeypatch.setitem(C.MESH_CPU_USUAL_STAGES, torch.__version__, {
+        r[0]: r[2] for r in C.mesh_cpu_stage_rows(whole)})
+    layer = next(r for r in whole["stages"][2]["rows"] if r[0] == "layer 1")
+    layer[1] = "0" * 16
+    spawn, state = C.mesh_cpu_spawn, {}
 
-    got = C.mesh_cpu_parting(work, cases, arch, digest)
-    assert got["first"]["digest"] == digest
+    def altered(where, cs, record):
+        wall = spawn(where, cs, record)
+        if where.name.endswith("_again"):
+            path = where / f"ops.{arch}.2.json.gz"
+            with gzip.open(path, "rt") as f:
+                rows = json.load(f)
+            at = next(r[0] for r in rows if r[1] == "aten.bmm" and r[8][0]
+                      and "[" in r[2])
+            ulp = float(np.spacing(rows[at][8][0][1]))
+            rows[at][6][0] += 1
+            rows[at][8][0][1] += ulp
+            with gzip.open(path, "wt") as f:
+                json.dump(rows, f)
+            state.update(at=at, ulp=ulp, site=rows[at][2])
+        return wall
+
+    monkeypatch.setattr(C, "mesh_cpu_spawn", altered)
+    got = C.mesh_cpu_parting(work, cases, arch, whole, digest)
+    stage = got["first"]["parted_from_usual"]
+    assert (stage["kind"], stage["stage"], stage["part"]) == (
+        "digest", "layer 1", 2), stage
     assert [s["from"] for s in got["spawns"]] == ["this process",
                                                   "a fresh interpreter"]
     assert all(s["digest"] == digest for s in got["spawns"])
+    for s in got["spawns"]:
+        assert (s["first_parted"]["stage"], s["first_parted"]["part"]) == (
+            "layer 1", 2), s
     kinds = [r["kind"] for r in got["ranks"]]
     assert kinds == ["equal", "equal", "op chose differently (inputs agree)",
                      "equal"], kinds
     p = got["ranks"][2]
-    assert (p["index"], p["op"], p["site"]) == (at, "aten.bmm", rows[at][2])
+    at = state["at"]
+    assert (p["index"], p["op"], p["site"]) == (at, "aten.bmm",
+                                                state["site"])
     assert p["inputs_agree"] is True
-    assert p["size"][0]["abs_max_diff"] == ulp
+    assert p["size"][0]["abs_max_diff"] == state["ulp"]
     assert p["size"][0]["sum_diff"] == 0.0
     printed = capsys.readouterr().out
-    assert '"mesh_cpu_parting"' in printed and f'"index": {at}' in printed
+    assert printed.index('"mesh_cpu_parted_stage"') < printed.index(
+        '"mesh_cpu_parting"')
+    assert f'"index": {at}' in printed

@@ -7,8 +7,7 @@ the ranks parts.
                                     [--record] [--record-every K]
                                     [--fill nan] [--load N]
                                     [--hashseed unset|random|same]
-                                    [--inherit GB] [--tree DIR]
-                                    [--out PATH]
+                                    [--tree DIR] [--out PATH]
 
 The hold (``chip_smoke.mesh_cpu``): qwen2-0.5b at full width cut to 2
 layers, f64, one train step from seed-1 masters on 4 CPU ranks (gloo,
@@ -17,27 +16,26 @@ gradient within 1e-10 relative by norm.
 
 With ``--main`` the probe first runs ``chip_smoke.main()`` in this
 process (its output to ``<out>.main.log``) and keeps both sides of the
-hold as that run computed them, then diffs them per leaf against a
-recomputation in the same process (elements that differ, max abs
-difference, how many differ above the low 32 bits of the f64).
+hold as that run computed them, with the ranks' stage digests, then
+diffs them per leaf against a recomputation in the same process
+(elements that differ, max abs difference, how many differ above the
+low 32 bits of the f64) and names the first stage at which they part.
 
-``--ranks N`` runs the 4 ranks N times, as ``mesh_cpu`` spawns them,
-and prints one line a run: the run's digest (one hash over the loss,
-every gradient and every updated parameter, put together whole), each
-rank's hash seed, and how the run parts from the first (per leaf); the
-last line counts the runs of each digest.  ``--hashseed`` sets each
-rank's ``PYTHONHASHSEED``: left unset (``unset``, the default, as the
-hold runs), drawn at random for each rank and written down
-(``random``), or one drawn value for all four (``same``).
+``--ranks N`` runs the 4 ranks N times, as ``mesh_cpu`` spawns them
+(plain, each rank digesting each stage of its step), and prints one line
+a run: the run's digest (one hash over the loss, every gradient and
+every updated parameter, put together whole), each rank's hash seed,
+the first stage at which the run's stage digests part from the first
+run's and from the usual ones (``chip_smoke.MESH_CPU_USUAL_STAGES``),
+and how the run parts from the first (per leaf); the last line counts
+the runs of each digest and of each first parted stage.
+``--hashseed`` sets each rank's ``PYTHONHASHSEED``: left unset
+(``unset``, the default, as the hold runs), drawn at random for each
+rank and written down (``random``), or one drawn value for all four
+(``same``).
 ``--load N`` keeps N busy processes running beside the ranks.
 ``--fill nan`` fills every new tensor with NaN (PyTorch's
 deterministic mode), so that a read of memory no op wrote shows.
-``--inherit GB`` gives the ranks, without ``chip_smoke.main()``, what a
-rank spawned after it inherits from its parent: the environment
-variable ``TORCHINDUCTOR_CACHE_DIR`` and setuptools' vendored packages
-on ``sys.path`` (what importing ``torch.utils.cpp_extension`` leaves,
-as the kernels' build does), and GB gigabytes less free host memory
-(a buffer this process writes and holds while the ranks run).
 
 ``--record`` runs each rank's step under ``OpLog``
 (``src/repro_torch/launch/oplog.py``, taken from this checkout whatever
@@ -173,41 +171,60 @@ def process_state() -> dict:
             "torch_threads": torch.get_num_threads()}
 
 
-def inherit(gb: float):
-    """What a rank spawned after ``chip_smoke.main()`` inherits from its
-    parent, given to this process: ``TORCHINDUCTOR_CACHE_DIR`` and
-    setuptools' vendored packages on ``sys.path`` (importing
-    ``torch.utils.cpp_extension``, as the kernels' build does), and ``gb``
-    gigabytes of host memory written and held (returned: keep it alive
-    while the ranks run)."""
-    from torch._inductor.runtime.cache_dir_utils import default_cache_dir
-    from torch.utils.cpp_extension import CUDA_HOME  # noqa: F401
-    os.environ.setdefault("TORCHINDUCTOR_CACHE_DIR", default_cache_dir())
-    return torch.ones(int(gb * 1e9) // 8, dtype=torch.float64)
-
-
 # ------------------------------------------------------------ the ranks
-def probe_rank(rank, store, out, cases, record, fill):
+def planted(stage: str):
+    """``chip_smoke``'s ``Stages`` with the first element of ``stage``'s
+    largest tensor made one ulp larger before it is digested, in place:
+    the step goes on from the changed value."""
+
+    class Planted(C.Stages):
+        def __call__(self, label, tensors):
+            if label == stage:
+                t = tensors if isinstance(tensors, torch.Tensor) \
+                    else max(tensors, key=torch.numel)
+                with torch.no_grad():
+                    a = _log.local_part(t)
+                    at = (0,) * a.ndim
+                    a[at] = torch.nextafter(a[at], a.new_tensor(
+                        float("inf")))
+            super().__call__(label, tensors)
+
+    return Planted
+
+
+def probe_rank(rank, store, out, cases, record, fill, runs=(None,)):
     """``chip_smoke.mesh_cpu_rank``, after writing this rank's
     :func:`process_info` (with 2 threads, as the rank runs) to
     ``<out>/info.<rank>.json``; with ``record`` under ``OpLog``, whose
     rows go to ``<out>/ops.<rank>.json.gz``; with ``fill`` "nan" every
-    new tensor holds NaN (PyTorch's deterministic mode)."""
+    new tensor holds NaN (PyTorch's deterministic mode).  ``runs``: the
+    step's runs in this process, in order, each in ``<out>/run<k>``
+    where there are several: None as the hold runs it, "off" without the
+    stage digests, or (stage, rank) with :func:`planted` on that rank."""
     torch.set_num_threads(2)
     cfg = next(iter(cases.values()))[0]
     Path(out, f"info.{rank}.json").write_text(json.dumps(process_info(cfg)))
     if fill == "nan":
         torch.use_deterministic_algorithms(True, warn_only=True)
         torch.utils.deterministic.fill_uninitialized_memory = True
-    if not record:
-        C.mesh_cpu_rank(rank, store, out, cases)
-        return
-    with OpLog() as log:
-        C.mesh_cpu_rank(rank, store, out, cases)
-    with gzip.open(Path(out, f"ops.{rank}.json.gz"), "wt") as f:
-        json.dump(log.rows, f)
-    Path(out, f"recorder.{rank}.json").write_text(json.dumps(
-        {"ops": len(log.rows), "seconds": log.seconds}))
+    plain = C.Stages
+    for k, how in enumerate(runs):
+        where = Path(out) / f"run{k}" if len(runs) > 1 else Path(out)
+        where.mkdir(exist_ok=True)
+        C.Stages = planted(how[0]) if isinstance(how, tuple) \
+            and how[1] == rank else plain
+        args = (rank, f"{store}{k}", str(where), cases)
+        kw = {"staged": None} if how == "off" else {}
+        if not record:
+            C.mesh_cpu_rank(*args, **kw)
+            continue
+        with OpLog() as log:
+            C.mesh_cpu_rank(*args, **kw)
+        with gzip.open(where / f"ops.{rank}.json.gz", "wt") as f:
+            json.dump(log.rows, f)
+        (where / f"recorder.{rank}.json").write_text(json.dumps(
+            {"ops": len(log.rows), "seconds": log.seconds}))
+    C.Stages = plain
 
 
 def _spawn(fn, args, seeds) -> None:
@@ -262,12 +279,15 @@ def _digest(whole) -> str:
 
 
 def ranks(tag: str, seeds, record=False, fill=None, load=0, case=None,
-          root=None) -> dict:
+          root=None, runs=(None,)) -> dict:
     """The 4 ranks' step, as ``mesh_cpu`` runs it, put together whole,
-    with each rank's :func:`process_info`, the run's digest, and with
-    ``record`` each rank's op rows.  ``case`` (config, pipeline) is the
-    hold's unless given; the ranks work under ``root`` (the checkout's
-    build/ unless given)."""
+    with each rank's :func:`process_info`, the run's digest, its stage
+    rows (``chip_smoke.mesh_cpu_stage_rows``: a stage a row, each rank's
+    digest) and with ``record`` each rank's op rows.  ``case`` (config,
+    pipeline) is the hold's unless given; the ranks work under ``root``
+    (the checkout's build/ unless given).  With several ``runs``
+    (:func:`probe_rank`), each run's reading is in ``runs``, and the
+    first's is the whole reading as well."""
     cfg, pipe = case or C.mesh_cpu_case(ARCH)
     work = Path(root or C.ROOT / "build") / f"mesh_f64_probe_{tag}"
     shutil.rmtree(work, ignore_errors=True)
@@ -277,28 +297,53 @@ def ranks(tag: str, seeds, record=False, fill=None, load=0, case=None,
                for _ in range(load)]
     try:
         _spawn(probe_rank, (str(work / "store"), str(work),
-                            {ARCH: (cfg, pipe)}, record, fill), seeds)
+                            {ARCH: (cfg, pipe)}, record, fill, runs), seeds)
     finally:
         for b in burners:
             b.kill()
             b.wait()
     wall = time.perf_counter() - t0
+    read = [_reading(work / f"run{k}" if len(runs) > 1 else work, record)
+            for k in range(len(runs))]
+    out = {**read[0], "wall_s": wall,
+           "info": [json.loads(Path(work, f"info.{r}.json").read_text())
+                    for r in range(4)]}
+    if len(runs) > 1:
+        out["runs"] = read
+    shutil.rmtree(work)
+    return out
+
+
+def _reading(work: Path, record: bool) -> dict:
+    """One run of the ranks in ``work``, put together whole."""
     whole = C.mesh_cpu_whole(work, ARCH)
     out = {"loss": float(whole["loss"]), "grads": whole["grads"],
            "nan": any(bool(a.isnan().any()) for a in whole["grads"]),
-           "digest": _digest(whole), "wall_s": wall,
+           "digest": _digest(whole),
            "replicas_differ": whole.get("replicas_differ", []),
-           "info": [json.loads(Path(work, f"info.{r}.json").read_text())
-                    for r in range(4)]}
+           "stages": C.mesh_cpu_stage_rows(whole)
+           if whole.get("stages") else None,
+           "stages_s": [s["seconds"] for s in whole.get("stages", [])],
+           "waited_s": [s["waited"] for s in whole.get("stages", [])]}
     if record:
         out["ops"] = []
         for r in range(4):
-            with gzip.open(Path(work, f"ops.{r}.json.gz"), "rt") as f:
+            with gzip.open(work / f"ops.{r}.json.gz", "rt") as f:
                 out["ops"].append(json.load(f))
-        out["recorder"] = [json.loads(Path(
-            work, f"recorder.{r}.json").read_text()) for r in range(4)]
-    shutil.rmtree(work)
+        out["recorder"] = [json.loads((work / f"recorder.{r}.json")
+                                      .read_text()) for r in range(4)]
     return out
+
+
+def stages_vs(rows, first, usual) -> dict:
+    """Stage rows as a table (a stage's digests, one a rank), and where
+    they part from the first run's and from the usual ones (None where
+    there is no such record)."""
+    if rows is None:
+        return {}
+    return {"stages": {r[0]: r[2] for r in rows},
+            "vs_first": first and _log.parted_stage(rows, first),
+            "vs_usual": usual and _log.parted_stage(rows, usual)}
 
 
 def card(masters, cfg, batch) -> dict:
@@ -352,7 +397,6 @@ def main() -> int:
                     choices=("unset", "random", "same"))
     ap.add_argument("--fill", choices=("nan",))
     ap.add_argument("--load", type=int, default=0)
-    ap.add_argument("--inherit", type=float, default=0.0)
     ap.add_argument("--tree")
     ap.add_argument("--out", default=str(ROOT / "chiprun_out" /
                                          "mesh_f64_probe.jsonl"))
@@ -368,15 +412,7 @@ def main() -> int:
 
     emit(card=smi(), torch=torch.__version__, tree=str(TREE),
          args=vars(args))
-    held = None
-    if args.inherit:
-        before = process_state()
-        held = inherit(args.inherit)
-        after = process_state()
-        emit(inherited={k: [before[k], after[k]] for k in after
-                        if before[k] != after[k] and k != "env"},
-             env_added={k: v for k, v in after["env"].items()
-                        if k not in before["env"]})
+    usual = getattr(C, "MESH_CPU_USUAL_STAGES", {}).get(torch.__version__)
     cfg, pipe = C.mesh_cpu_case(ARCH)
     masters = C.mesh_cpu_masters(cfg)
     names = C.leaf_names(masters)
@@ -388,7 +424,9 @@ def main() -> int:
             w = whole(work, arch)
             if arch == ARCH:
                 kept["ranks"] = {"loss": float(w["loss"]),
-                                 "grads": [a.clone() for a in w["grads"]]}
+                                 "grads": [a.clone() for a in w["grads"]],
+                                 "stages": C.mesh_cpu_stage_rows(w)
+                                 if w.get("stages") else None}
             return w
 
         def keep_step(c, params, b, **kw):
@@ -422,8 +460,11 @@ def main() -> int:
     for side, then in kept.items():
         emit(side=side, vs="the run's own", loss=then["loss"] -
              now[side]["loss"], leaves={n: diff(a, b) for n, a, b in zip(
-                 names, then["grads"], now[side]["grads"])})
+                 names, then["grads"], now[side]["grads"])},
+             **stages_vs(then.get("stages"), now[side].get("stages"),
+                         usual))
     first, base_ops, counts, saved = now.get("ranks"), None, {}, 0
+    parted = {}
     ops_dir = Path(f"{out}.ops")
     for i, seeds in enumerate(plan):
         record = args.record and (i + 1) % args.record_every == 0
@@ -436,7 +477,14 @@ def main() -> int:
                "replicas_differ": again["replicas_differ"],
                "nan": again["nan"],
                "str_hashes": [x["str_hash"] for x in again["info"]],
-               "capabilities": [x["capability"] for x in again["info"]]}
+               "capabilities": [x["capability"] for x in again["info"]],
+               "stages_s": again["stages_s"],
+               "waited_s": again["waited_s"],
+               **stages_vs(again["stages"], (first or again)["stages"],
+                           usual)}
+        where = rec.get("vs_usual") or rec.get("vs_first") or {}
+        where = where.get("stage", where.get("kind"))
+        parted[where] = parted.get(where, 0) + 1
         if "card" in now:
             rec["vs_card"] = max(
                 (float((a - b).norm() / b.norm()), n) for n, a, b in zip(
@@ -474,7 +522,7 @@ def main() -> int:
     if plan:
         emit(runs=len(plan), digests=counts,
              first=first["digest"] if first else None,
-             inherited_gb=args.inherit if held is not None else 0)
+             first_parted_stages=parted, usual_stages_known=bool(usual))
     if "card" in now and "ranks" in now:
         emit(vs="card against ranks, now", worst=max(
             (float((a - b).norm() / b.norm()), n) for n, a, b in zip(

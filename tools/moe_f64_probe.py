@@ -31,8 +31,17 @@ runs instead the CPU side of that check (``chip_smoke.moe_card_vs_cpu``:
 the seed-1 masters drawn on the card, the 16 decode steps and the
 forward in f64 on the host) N times, each in a fresh process, and
 prints one line a process with a hash of its logits and of its picks
-and their max abs difference from the first process's (about 25 s a
-process), then the count of each hash.  With ``--record`` every
+(and where each stage's first tensor lay: its address modulo 4096),
+their max abs difference from the first process's and from the card's
+forward and decode (run once in this process, as the check runs them:
+the usual card-against-CPU reading), each stage's digest
+(``chip_smoke.moe_cpu_run``: the masters as cast, the tokens, each
+layer's attention, router probabilities, MoE and output, the final norm,
+the logits) and the first stage at which they part from the first
+process's and from the usual ones (``chip_smoke.MOE_CPU_USUAL_STAGES``),
+with the size of the difference there by max abs and by norm (about 25
+s a process); then the count of each hash and of each first parted
+stage.  With ``--record`` every
 process runs under the port's op recorder
 (``repro_torch.launch.oplog.OpLog``: the op that wrote each input, a
 digest, sum and largest magnitude of each output) and each later
@@ -45,6 +54,7 @@ import contextlib
 import dataclasses
 import gzip
 import json
+import os
 import subprocess
 import sys
 import time
@@ -59,7 +69,8 @@ from torch.utils._python_dispatch import TorchDispatchMode  # noqa: E402
 from torch.utils._pytree import tree_leaves  # noqa: E402
 
 from repro_torch.configs import get_arch  # noqa: E402
-from repro_torch.launch.oplog import OpLog, first_parting  # noqa: E402
+from repro_torch.launch.oplog import (OpLog, Stages,  # noqa: E402
+                                      first_parting, parted_stage)
 from repro_torch.models import layers as L  # noqa: E402
 from repro_torch.models import model as M  # noqa: E402
 from repro_torch.models.params import init_params, tree_map  # noqa: E402
@@ -207,19 +218,41 @@ def emit(obj, out) -> None:
         f.write(line + "\n")
 
 
-def cpu_once(save=None, record=None) -> dict:
-    """The f64 CPU side of ``chip_smoke.moe_card_vs_cpu`` in this
-    process: hashes of its decode and forward logits and of its picks.
-    With ``save`` (a path) the logits are saved there.  With
-    ``record`` (a path) the run is recorded by ``OpLog``, whose rows are
-    written there."""
+def _chip_smoke():
     sys.path.insert(0, str(ROOT))
     import chip_smoke as C
+    return C
+
+
+class _Placed(Stages):
+    """``Stages`` that also keeps where each stage's first tensor lies:
+    its address modulo 4096 (``offsets``)."""
+
+    def __init__(self, **kw) -> None:
+        super().__init__(**kw)
+        self.offsets = {}
+
+    def __call__(self, label, tensors):
+        super().__call__(label, tensors)
+        t = tensors if isinstance(tensors, torch.Tensor) else tensors[0]
+        self.offsets[self.rows[-1][0]] = t.data_ptr() % 4096
+
+
+def cpu_once(save=None, record=None) -> dict:
+    """The f64 CPU side of ``chip_smoke.moe_card_vs_cpu`` in this
+    process, its stages digested (``chip_smoke.moe_cpu_run``): hashes of
+    its decode and forward logits and of its picks, and each stage's
+    digest.  With ``save`` (a path) the logits and the tensors of every
+    stage but the masters are saved there.  With ``record`` (a path) the
+    run is recorded by ``OpLog``, whose rows are written there."""
+    C = _chip_smoke()
     cfg = dataclasses.replace(get_arch(ARCH), n_layers=N_LAYERS)
     host = tree_map(lambda a: a.cpu(), C.cut_params(cfg, 1))
     c = dataclasses.replace(cfg, dtype="float64")
-    run = lambda: C.routed(lambda: C.decode_and_forward(  # noqa: E731
-        c, M._cast(host, torch.float64), C.decode_tokens(cfg).cpu()))
+    stages = _Placed(keep=KEEP_NUMEL)
+    run = lambda: C.routed(lambda: C.moe_cpu_run(  # noqa: E731
+        c, M._cast(host, torch.float64), C.decode_tokens(cfg).cpu(),
+        stages))
     t0 = time.perf_counter()
     extra = {}
     if record:
@@ -231,11 +264,43 @@ def cpu_once(save=None, record=None) -> dict:
     else:
         (dec, full), picks = run()
     if save:
-        torch.save([dec, full], save)
+        torch.save({"logits": [dec, full], "stages": stages.kept}, save)
     return {"decode": C.sha16([dec]), "forward": C.sha16([full]),
             "picks": C.sha16(picks), "cpu_s": time.perf_counter() - t0,
             "threads": torch.get_num_threads(),
+            "stages": stages.rows, "digests_s": stages.seconds,
+            "offsets": stages.offsets,
+            "cpus": len(os.sched_getaffinity(0)), "pid": os.getpid(),
             "recorded": bool(record), **extra}
+
+
+def stage_size(a: list, b: list):
+    """The difference of one stage's kept tensors in two runs: max abs
+    and norm, absolute and relative to the second's (None where they
+    were not kept)."""
+    if a is None or b is None:
+        return None
+    d = [(x.double() - y.double()) for x, y in zip(a, b)]
+    norm = float(sum(float(v.norm()) ** 2 for v in d) ** 0.5)
+    ref = float(sum(float(y.double().norm()) ** 2 for y in b) ** 0.5)
+    return {"max_abs": max(float(v.abs().max()) for v in d),
+            "norm": norm, "rel_norm": norm / ref if ref else None}
+
+
+def card_reading():
+    """The card's f64 decode and forward logits, as
+    ``chip_smoke.moe_card_vs_cpu`` computes them (seed-1 masters drawn on
+    the card, cast to f64), on the host."""
+    C = _chip_smoke()
+    cfg = dataclasses.replace(get_arch(ARCH), n_layers=N_LAYERS)
+    masters = C.cut_params(cfg, 1)
+    c = dataclasses.replace(cfg, dtype="float64")
+    got = C.decode_and_forward(c, M._cast(masters, torch.float64),
+                               C.decode_tokens(cfg))
+    out = [a.cpu() for a in got]
+    del masters, got
+    torch.cuda.empty_cache()
+    return out
 
 
 def _rows(path):
@@ -245,15 +310,22 @@ def _rows(path):
 
 def cpu_processes(n: int, out: str, record=False) -> None:
     """``n`` fresh processes of :func:`cpu_once`, each one's decode and
-    forward logits held against the first's by value (max abs
-    difference); with ``record`` each one runs under ``OpLog`` and each
-    later one's record is held against the first's (``first_parting``,
-    with the rows around the parting where its logits differ).
-    The last line counts the processes of each hash and gives, for each
-    hash, the largest difference of its processes from the first's."""
-    counts, largest = {}, {}
+    forward logits held against the first's and the card's by value (max
+    abs difference), each one's stages against the first's and the usual
+    ones (the first parted stage, with its size against the first's
+    where its tensors were kept); with ``record`` each one runs under
+    ``OpLog`` and each later one's record is held against the first's
+    (``first_parting``, with the rows around the parting where its
+    logits differ).  The last line counts the processes of each hash and
+    of each first parted stage, and gives, for each hash, the largest
+    difference of its processes from the first's and from the card's."""
+    C = _chip_smoke()
+    usual = C.MOE_CPU_USUAL_STAGES.get(torch.__version__)
+    counts, largest, parted, vs_card = {}, {}, {}, {}
     work = ROOT / "build" / "moe_cpu_processes"
     work.mkdir(parents=True, exist_ok=True)
+    card = card_reading()
+    base = None
     for i in range(n):
         cmd = [sys.executable, __file__, "--cpu-once", "--save",
                str(work / f"{i}.pt")]
@@ -265,8 +337,23 @@ def cpu_processes(n: int, out: str, record=False) -> None:
             "failed": got.returncode, "stderr": got.stderr[-2000:]}
         if "failed" not in rec:
             now, first = (torch.load(work / f"{j}.pt") for j in (i, 0))
-            rec["vs_first_max_abs"] = [float((a - b).abs().max())
-                                       for a, b in zip(now, first)]
+            rec["vs_first_max_abs"] = [
+                float((a - b).abs().max())
+                for a, b in zip(now["logits"], first["logits"])]
+            rec["vs_card_max_abs"] = [float((a - b).abs().max())
+                                      for a, b in zip(now["logits"], card)]
+            rows = rec.pop("stages")
+            base = base or rows
+            rec["stages"] = {r[0]: r[1] for r in rows}
+            rec["stages_vs_first"] = parted_stage(rows, base)
+            rec["stages_vs_usual"] = usual and parted_stage(rows, usual)
+            at = rec["stages_vs_first"].get("stage")
+            if at is not None:
+                rec["stages_vs_first"]["size"] = stage_size(
+                    now["stages"].get(at), first["stages"].get(at))
+            where = rec["stages_vs_usual"] or rec["stages_vs_first"]
+            where = where.get("stage", where["kind"])
+            parted[where] = parted.get(where, 0) + 1
             if record and i:
                 got = first_parting(_rows(work / "0.rows.json.gz"),
                                     _rows(work / f"{i}.rows.json.gz"))
@@ -282,9 +369,15 @@ def cpu_processes(n: int, out: str, record=False) -> None:
         if "vs_first_max_abs" in rec:
             largest[key] = [max(a, b) for a, b in zip(
                 largest.get(key, [0.0, 0.0]), rec["vs_first_max_abs"])]
+            vs_card[key] = [max(a, b) for a, b in zip(
+                vs_card.get(key, [0.0, 0.0]), rec["vs_card_max_abs"])]
         emit({"probe": "cpu_process", "i": i, **rec}, out)
     emit({"probe": "cpu_processes", "n": n, "counts": counts,
-          "largest_vs_first_max_abs": largest}, out)
+          "first_parted_stages": parted, "usual_stages_known": bool(usual),
+          "largest_vs_first_max_abs": largest,
+          "largest_vs_card_max_abs": vs_card,
+          "card": torch.cuda.get_device_name(0), "torch": torch.__version__},
+         out)
 
 
 def main() -> int:
