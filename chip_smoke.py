@@ -131,7 +131,10 @@ the usual digests, then respawns the ranks twice under the op recorder
 (``repro_torch.launch.oplog.OpLog``) and prints where the two records
 part, op by op (the op, its site, whether its inputs agreed, the size
 of the difference).  olmoe's line gives the digests of its CPU f64
-side, and of each stage of its forward beside the usual ones.
+side (on 8 threads, whatever the host's count), and of each stage of
+its forward beside the usual ones; both lines give the conditions
+their CPU sides ran under (the CPU set, the CPU last run on, the
+threads, the hash seed and the CPU model).
 bf16 attention must go to the tensor-core kernel and f32 to the
 CUDA-core one, bf16 with q, k and v scaled by 8 must hold the elementwise
 bf16 tolerance, and each attention case is timed warm and with the L2
@@ -211,7 +214,8 @@ from repro_torch.launch.train import (init_state, resume,  # noqa: E402
                                       start_group, train_loop)
 from repro_torch.launch.mesh import make_mesh  # noqa: E402
 from repro_torch.launch.oplog import (OpLog, Stages,  # noqa: E402
-                                      first_parting, joined, parted_stage)
+                                      cpu_conditions, first_parting, joined,
+                                      parted_stage)
 from repro_torch.models.sharding import full, use_sharding  # noqa: E402
 from repro_torch.train.step import (batch_shardings,  # noqa: E402
                                     opt_shardings)
@@ -360,8 +364,11 @@ ATTN_CORE_PEAK_RATIO = 1.3
 ATTN_CORE_HELD_ROWS = 2
 ATTN_CORE_RMS = {torch.float32: 1e-5, torch.bfloat16: 2e-2}
 # olmoe's f64 forward and decode on the card, this many times in one
-# process, each against the one CPU result at F64_TOL
+# process, each against the one CPU result at F64_TOL; its CPU side runs
+# on MOE_CPU_THREADS threads whatever the host's core count (the count
+# splits its sums, so it changes their digests, not their size)
 MOE_F64_REPS = 10
+MOE_CPU_THREADS = 8
 # 4 CPU ranks (gloo) on a 2 x 2 mesh at full width, cut to 2 layers, f64:
 # one train step (remat off: it changes no value and costs a forward)
 # held to the same step on one rank without a mesh at MESH_CPU_RTOL,
@@ -369,17 +376,18 @@ MOE_F64_REPS = 10
 MESH_CPU_ARCHS = ("qwen2-0.5b", "olmoe-1b-7b")
 MESH_CPU_LAYERS, MESH_CPU_BATCH, MESH_CPU_SEQ = 2, 4, 256
 MESH_CPU_RTOL = 1e-10
+MESH_CPU_THREADS = 2        # each rank's
 # the case whose ranks digest each stage of their step in every run
 # (``Stages``: the draw, the masters, the batch, each layer's attention
 # stages, MLP and output, the logits, the loss, each gradient, the
 # update), plain; a failing hold respawns its ranks under the op
 # recorder.  The digest of its ranks' result (loss, gradients, updated
 # parameters) and each stage's digest (the 4 ranks' joined) on every run
-# so far, by torch version (the card machine's host;
-# tools/mesh_f64_probe.py prints them)
+# so far, by torch version and a rank's threads (``usual_key``; the card
+# machine's host; tools/mesh_f64_probe.py prints them)
 MESH_CPU_STAGED = "qwen2-0.5b"
-MESH_CPU_USUAL_DIGEST = {"2.11.0+cu128": "8cbb086091f55e48"}
-MESH_CPU_USUAL_STAGES = {"2.11.0+cu128": {
+MESH_CPU_USUAL_DIGEST = {("2.11.0+cu128", 2): "8cbb086091f55e48"}
+MESH_CPU_USUAL_STAGES = {("2.11.0+cu128", 2): {
     "draw": "93699ba335be93f5",
     "masters": "2fa970951a60394a",
     "batch": "9ed33224c0d12e93",
@@ -432,8 +440,9 @@ MESH_CPU_USUAL_STAGES = {"2.11.0+cu128": {
 # (the f64 masters, the tokens, each layer's attention stages, router
 # probabilities, MoE and output, the final norm, the logits) on every
 # fresh process but the second results (tools/moe_f64_probe.py
-# --cpu-processes prints them), by torch version
-MOE_CPU_USUAL_STAGES = {"2.11.0+cu128": {
+# --cpu-processes prints them), by torch version and threads
+# (``usual_key``)
+MOE_CPU_USUAL_STAGES = {("2.11.0+cu128", 8): {
     "masters": "e95210a8c5f6d76c",
     "tokens": "5245cacb7489044d",
     "embed": "9b878214fc49abbe",
@@ -474,6 +483,24 @@ ENV_AT_START = dict(os.environ)
 
 def emit(obj) -> None:
     print(json.dumps(obj), flush=True)
+
+
+def usual_key(threads):
+    """The key of a table of usual digests: this torch and the threads
+    the digested computation ran on."""
+    return torch.__version__, threads
+
+
+@contextlib.contextmanager
+def cpu_threads(n):
+    """torch's intra-op threads set to ``n`` inside, the process's own
+    count restored after."""
+    was = torch.get_num_threads()
+    torch.set_num_threads(n)
+    try:
+        yield
+    finally:
+        torch.set_num_threads(was)
 
 
 def exp7_instance():
@@ -1839,12 +1866,13 @@ def moe_card_vs_cpu(arch, n_layers) -> dict:
     digests printed (``cpu_float64_digest``: its decode and forward
     logits and its picks, hashed as ``tools/moe_f64_probe.py
     --cpu-processes`` hashes them; ``cpu_float64_stages``: each stage of
-    its forward, :func:`moe_cpu_stages`, beside the usual ones); f32 by
-    relative
-    RMS within ``F32_GAP_RATIO`` times the CPU's f32 error (its f32
-    logits against its f64 ones).  (Decode differs from forward by the
-    reference's design: a step's group is the batch, so its capacity is
-    1; the gap is reported.)"""
+    its forward, :func:`moe_cpu_stages`, beside the usual ones;
+    ``cpu_conditions``: its CPU set, the CPU it last ran on, its threads,
+    hash seed and CPU model); f32 by relative RMS within
+    ``F32_GAP_RATIO`` times the CPU's f32 error (its f32 logits against
+    its f64 ones).  The CPU side runs on ``MOE_CPU_THREADS`` threads.
+    (Decode differs from forward by the reference's design: a step's
+    group is the batch, so its capacity is 1; the gap is reported.)"""
     cfg = dataclasses.replace(get_arch(arch), n_layers=n_layers)
     masters = cut_params(cfg, 1)
     host = tree_map(lambda a: a.cpu(), masters)
@@ -1854,13 +1882,16 @@ def moe_card_vs_cpu(arch, n_layers) -> dict:
     def run(name, where, stages=None):
         c = dataclasses.replace(cfg, dtype=name)
         p = M._cast(masters if where == "card" else host, DTYPES[name])
-        t = toks if where == "card" else toks.cpu()
-        got, r = routed(lambda: moe_cpu_run(c, p, t, stages)
-                        if stages else decode_and_forward(c, p, t))
+        if where == "card":
+            got, r = routed(lambda: decode_and_forward(c, p, toks))
+        else:
+            got, r, now = moe_cpu_side(c, p, toks.cpu(), stages)
+            if stages:
+                conditions.update(now)
         routes.append(r)
         return [a.cpu() for a in got]
 
-    stages = Stages()
+    stages, conditions = Stages(), {}
     runs = {("float64", "cpu"): run("float64", "cpu", stages)}
     staged = moe_cpu_stages(stages)
     f64 = {"decode": [], "forward": []}
@@ -1893,7 +1924,7 @@ def moe_card_vs_cpu(arch, n_layers) -> dict:
            "cpu_float64_digest": {"decode": sha16([dec64]),
                                   "forward": sha16([full64]),
                                   "picks": sha16(routes[0])},
-           "cpu_float64_stages": staged}
+           "cpu_float64_stages": staged, "cpu_conditions": conditions}
     for i, what in enumerate(("decode", "forward")):
         r64 = {"max_abs_err": max(f64[what]), "reps": MOE_F64_REPS,
                "max_abs_err_by_rep": f64[what], "tol": F64_TOL}
@@ -1913,6 +1944,19 @@ def moe_card_vs_cpu(arch, n_layers) -> dict:
     return out
 
 
+def moe_cpu_side(cfg, params, toks, stages=None):
+    """olmoe's CPU side of ``moe_card_vs_cpu`` on ``MOE_CPU_THREADS``
+    threads, the process's count restored after: ``decode_and_forward``
+    under ``routed``, its stages digested into ``stages`` where given
+    (:func:`moe_cpu_run`).  Returns the logits, the picks and the CPU
+    conditions it ran under."""
+    with cpu_threads(MOE_CPU_THREADS):
+        got, picks = routed(lambda: moe_cpu_run(cfg, params, toks, stages)
+                            if stages else decode_and_forward(cfg, params,
+                                                              toks))
+        return got, picks, cpu_conditions()
+
+
 def moe_cpu_run(cfg, params, toks, stages):
     """``decode_and_forward`` as olmoe's f64 CPU side runs it, its stages
     digested into ``stages``: the masters as cast, the tokens, then the
@@ -1927,7 +1971,7 @@ def moe_cpu_stages(stages) -> dict:
     digest, the usual ones (``MOE_CPU_USUAL_STAGES``) and the first
     stage at which this run parts from them (None where this torch has no
     usual digests), and the digests' seconds."""
-    usual = MOE_CPU_USUAL_STAGES.get(torch.__version__)
+    usual = MOE_CPU_USUAL_STAGES.get(usual_key(MOE_CPU_THREADS))
     return {"stages": {r[0]: r[1] for r in stages.rows},
             "usual_known": usual is not None,
             "parted_from_usual": None if usual is None
@@ -1952,7 +1996,8 @@ def moe_f64_ops(cfg, masters, host, toks) -> dict:
     import moe_f64_probe as P
     c = dataclasses.replace(cfg, dtype="float64")
     stages = P._Stages()
-    with stages.installed(), P._Record(stages) as want:
+    with stages.installed(), P._Record(stages) as want, \
+            cpu_threads(MOE_CPU_THREADS):
         M.forward(c, M._cast(host, torch.float64), {"tokens": toks.cpu()})
     stages.layer = -1
     with stages.installed(), P._Record(stages, want.ops) as got:
@@ -2856,13 +2901,14 @@ def mesh_cpu_rank(rank, store, out, cases, record=None,
     digests its own part of each stage (``Stages``: the f32 draw, the f64
     masters, the batch, each layer's activations, the logits, the loss,
     each gradient, the updated parameters), whose rows and seconds go
-    with the results.  The case of arch ``record`` runs under the op
+    with the results, and so do the rank's CPU conditions
+    (``cpu_conditions``).  The case of arch ``record`` runs under the op
     recorder (``repro_torch.launch.oplog.OpLog``), whose rows go to
     ``<out>/ops.<arch>.<rank>.json.gz`` and whose op count and seconds go
     with the results."""
     from torch.distributed.tensor._utils import \
         compute_local_shape_and_global_offset
-    torch.set_num_threads(2)
+    torch.set_num_threads(MESH_CPU_THREADS)
     dist.init_process_group("gloo", store=dist.FileStore(store, 4),
                             rank=rank, world_size=4)
     try:
@@ -2877,23 +2923,12 @@ def mesh_cpu_rank(rank, store, out, cases, record=None,
             log = OpLog() if arch == record else contextlib.nullcontext()
             stages = Stages() if arch == staged else None
             with use_sharding(mesh), log, stages or contextlib.nullcontext():
-                params = mesh_cpu_masters(cfg, stages)
-                batch = pipe.device_batch(0, "cpu",
-                                          batch_shardings(cfg, pipe.shape))
-                if stages:
-                    stages("batch", [batch[k] for k in sorted(batch)])
-                loss, grads = loss_and_grads(cfg, params, batch, remat=False)
-                if stages:
-                    stages("loss", loss)
-                    for name, g in zip(leaf_names(grads), tree_leaves(grads)):
-                        stages(f"grad {name}", g)
-                new, _, info = adamw_update(AdamWConfig(), params, grads,
-                                            init_opt_state(params))
-                if stages:
-                    stages("params", tree_leaves(new))
+                loss, grads, new, info = mesh_cpu_step(
+                    cfg, pipe, stages, batch_shardings(cfg, pipe.shape))
                 part = {"loss": full(loss), "grad_norm": info["grad_norm"],
-                        "grads": shards(grads), "params": shards(new)}
-                del params, grads, new
+                        "grads": shards(grads), "params": shards(new),
+                        "conditions": cpu_conditions()}
+                del grads, new
             if stages:
                 part["stages"] = {"rows": stages.rows,
                                   "seconds": stages.seconds,
@@ -2908,6 +2943,32 @@ def mesh_cpu_rank(rank, store, out, cases, record=None,
             del part
     finally:
         dist.destroy_process_group()
+
+
+def mesh_cpu_step(cfg, pipe, stages=None, shardings=None):
+    """One f64 train step of a ``mesh_cpu_case`` on the CPU, as
+    ``make_train_step`` makes it, on the active mesh where one is
+    (``shardings``, the batch's): seed-1 masters
+    (:func:`mesh_cpu_masters`) on step 0's batch, ``loss_and_grads``,
+    then ``adamw_update`` from a fresh state.  ``stages`` (entered by
+    the caller, so that the model's activations reach it) digests the
+    draw, the masters, the batch, the loss, each gradient and the
+    updated parameters.  Returns the loss, the gradients, the updated
+    parameters and AdamW's info."""
+    params = mesh_cpu_masters(cfg, stages)
+    batch = pipe.device_batch(0, "cpu", shardings)
+    if stages:
+        stages("batch", [batch[k] for k in sorted(batch)])
+    loss, grads = loss_and_grads(cfg, params, batch, remat=False)
+    if stages:
+        stages("loss", loss)
+        for name, g in zip(leaf_names(grads), tree_leaves(grads)):
+            stages(f"grad {name}", g)
+    new, _, info = adamw_update(AdamWConfig(), params, grads,
+                                init_opt_state(params))
+    if stages:
+        stages("params", tree_leaves(new))
+    return loss, grads, new, info
 
 
 def mesh_cpu_spawn(work, cases, record) -> float:
@@ -2932,14 +2993,14 @@ def mesh_cpu_whole(work, arch):
     lists each (kind, leaf index, rank) where they part.  ``recorder``:
     each rank's op count and recorder seconds, where it was recorded;
     ``stages``: each rank's stage rows and seconds, where it digested
-    them."""
+    them; ``conditions``: each rank's CPU conditions."""
     whole, written = {"replicas_differ": [], "recorder": [],
-                      "stages": []}, set()
+                      "stages": [], "conditions": []}, set()
     for rank in range(4):
         part = torch.load(work / f"{arch}.{rank}.pt")
         if rank == 0:
             whole.update({k: part[k] for k in ("loss", "grad_norm")})
-        for key in ("recorder", "stages"):
+        for key in ("recorder", "stages", "conditions"):
             if key in part:
                 whole[key].append(part[key])
         for key in ("grads", "params"):
@@ -3015,7 +3076,7 @@ def mesh_cpu_stages(whole) -> dict:
     has no usual digests); the most seconds a rank spent on its digests,
     and on the waits for pending collectives they made first."""
     rows = mesh_cpu_stage_rows(whole)
-    usual = MESH_CPU_USUAL_STAGES.get(torch.__version__)
+    usual = MESH_CPU_USUAL_STAGES.get(usual_key(MESH_CPU_THREADS))
     return {"stages": {r[0]: r[2] for r in rows},
             "usual_known": usual is not None,
             "parted_from_usual": None if usual is None
@@ -3037,10 +3098,10 @@ def mesh_cpu() -> dict:
     stage in every run: the line gives their result's digest (beside the
     usual one, ``MESH_CPU_USUAL_DIGEST``) and each stage's digests, one a
     rank, with the first stage at which they part from the usual ones
-    (:func:`mesh_cpu_stages`).  A failing hold first reads
-    :func:`mesh_cpu_parting` (its lines printed: the first parted stage,
-    then the recorded respawns' first parting op) and a second card step
-    (:func:`mesh_cpu_again`), then raises."""
+    (:func:`mesh_cpu_stages`), and each rank's CPU conditions.  A failing
+    hold first reads :func:`mesh_cpu_parting` (its lines printed: the
+    first parted stage, then the recorded respawns' first parting op) and
+    a second card step (:func:`mesh_cpu_again`), then raises."""
     work = ROOT / "build" / "mesh_cpu"
     cases = {arch: mesh_cpu_case(arch) for arch in MESH_CPU_ARCHS}
     ranks_s = mesh_cpu_spawn(work, cases, None)
@@ -3064,11 +3125,12 @@ def mesh_cpu() -> dict:
         # hashing at olmoe's width) only where its hold fails
         digest = mesh_cpu_digest(g) if arch == MESH_CPU_STAGED else None
         if arch == MESH_CPU_STAGED:
-            usual = MESH_CPU_USUAL_DIGEST.get(torch.__version__)
+            usual = MESH_CPU_USUAL_DIGEST.get(usual_key(MESH_CPU_THREADS))
             out["staged"] = {
                 "arch": arch, "ranks_digest": digest, "usual_digest": usual,
                 "digest_is_usual": None if usual is None
-                else digest == usual, **mesh_cpu_stages(g)}
+                else digest == usual, **mesh_cpu_stages(g),
+                "conditions": g["conditions"]}
         names = leaf_names(params)
         if g["replicas_differ"]:
             parting = mesh_cpu_parting(work, cases, arch, g, digest)
@@ -3145,13 +3207,13 @@ def mesh_cpu_parting(work, cases, arch, whole, digest=None) -> dict:
     (``first_parting``: index, op, site, shapes and dtypes, whether its
     inputs agreed, and the size of the difference of its outputs)."""
     digest = digest or mesh_cpu_digest(whole)
-    usual = MESH_CPU_USUAL_DIGEST.get(torch.__version__)
+    usual = MESH_CPU_USUAL_DIGEST.get(usual_key(MESH_CPU_THREADS))
     staged = arch == MESH_CPU_STAGED and bool(whole["stages"])
     rows = mesh_cpu_stage_rows(whole) if staged else None
     first = {"arch": arch, "digest": digest,
              "usual": usual and digest == usual}
     if staged:
-        table = MESH_CPU_USUAL_STAGES.get(torch.__version__)
+        table = MESH_CPU_USUAL_STAGES.get(usual_key(MESH_CPU_THREADS))
         first["parted_from_usual"] = None if table is None \
             else parted_stage(rows, table)
     emit({"mesh_cpu_parted_stage": first})

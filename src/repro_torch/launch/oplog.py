@@ -40,10 +40,15 @@ draw, the masters, the batch, the loss, each gradient) and of each
 activation the model hands ``models.layers.tap`` (the embedding, each
 layer's attention, router, MoE or MLP and output, the final norm, the
 logits).  :func:`parted_stage` names the first stage at which two such
-records part.
+records part, :func:`bit_parting` the first element of a stage's kept
+tensors at which they part, with the bits that differ there.
+:func:`cpu_conditions` reads the conditions a process computes under:
+its CPU set, the CPU it last ran on, its threads, its hash seed and the
+CPU model.
 """
 import hashlib
 import math
+import os
 import sys
 import sysconfig
 import threading
@@ -432,3 +437,96 @@ def parted_stage(a: list, b) -> dict:
         return {"index": min(len(a), len(b)), "kind": "length",
                 "stages": [len(a), len(b)]}
     return {"index": None, "kind": "equal", "stages": len(a)}
+
+
+# an element's bytes as one integer word, by its size
+_WORDS = {8: torch.int64, 4: torch.int32, 2: torch.int16, 1: torch.uint8}
+
+
+def bit_parting(a: list, b: list) -> dict:
+    """Where two runs' tensors of one stage (lists of equal shapes and
+    dtypes, as :attr:`Stages.kept` keeps them) first part element by
+    element: ``part`` (the tensor), ``element`` (its flat index) and
+    ``at`` (its index), both ``values``, the XOR of the two elements'
+    words (``xor``, hex) and its set ``bits`` (0 the lowest); and, over
+    the stage, how many elements differ and how many bits differ in
+    each at most (``elements_differing``, ``most_bits``).  None where
+    the tensors are equal."""
+    first, count, most = None, 0, 0
+    for j, (x, y) in enumerate(zip(a, b)):
+        word = _WORDS[x.element_size()]
+        u = x.detach().contiguous().reshape(-1).view(word)
+        v = y.detach().contiguous().reshape(-1).view(word)
+        xor = (u ^ v).to(torch.int64)
+        where = torch.nonzero(xor).reshape(-1)
+        if not where.numel():
+            continue
+        count += where.numel()
+        d, pop, bits = xor[where], torch.zeros_like(where), []
+        for k in range(8 * x.element_size()):
+            on = (d >> k) & 1
+            pop += on
+            bits.append(int(on.sum()))
+        most = max(most, int(pop.max()))
+        if first is None:
+            i = int(where[0])
+            w = int(xor[i]) & ((1 << 8 * x.element_size()) - 1)
+            first = {"part": j, "element": i,
+                     "at": [int(k) for k in torch.unravel_index(
+                         torch.tensor(i), x.shape)],
+                     "values": [x.reshape(-1)[i].item(),
+                                y.reshape(-1)[i].item()],
+                     "xor": f"{w:0{2 * x.element_size()}x}",
+                     "bits": [k for k in range(8 * x.element_size())
+                              if w >> k & 1],
+                     "bit_counts": {k: n for k, n in enumerate(bits) if n}}
+    if first is None:
+        return None
+    return {**first, "elements_differing": count, "most_bits": most}
+
+
+def parse_cpulist(text: str) -> list:
+    """The CPUs of a list as the kernel writes one (``0-3,8``)."""
+    out = []
+    for part in text.strip().split(","):
+        if part:
+            lo, _, hi = part.partition("-")
+            out += range(int(lo), int(hi or lo) + 1)
+    return out
+
+
+def cpulist(cpus) -> str:
+    """``cpus`` written as the kernel writes a CPU list."""
+    cpus, runs = sorted(cpus), []
+    for c in cpus:
+        if runs and c == runs[-1][1] + 1:
+            runs[-1][1] = c
+        else:
+            runs.append([c, c])
+    return ",".join(f"{a}" if a == b else f"{a}-{b}" for a, b in runs)
+
+
+def last_cpu() -> int:
+    """The CPU this process's main thread last ran on: field 39 of
+    ``/proc/self/stat``."""
+    stat = Path("/proc/self/stat").read_text()
+    return int(stat[stat.rindex(")") + 2:].split()[36])
+
+
+def cpu_model() -> str:
+    """The host's CPU model, as ``/proc/cpuinfo`` names it."""
+    for line in Path("/proc/cpuinfo").read_text().splitlines():
+        if line.startswith("model name"):
+            return line.split(":", 1)[1].strip()
+    return "unknown"
+
+
+def cpu_conditions() -> dict:
+    """The conditions this process computes under on the CPU: its CPU
+    set (``affinity``, a CPU list), the CPU its main thread last ran on
+    (``last_cpu``), torch's intra-op ``threads``, ``PYTHONHASHSEED``
+    (None where unset) and the CPU model.  Reads only."""
+    return {"affinity": cpulist(os.sched_getaffinity(0)),
+            "last_cpu": last_cpu(), "threads": torch.get_num_threads(),
+            "hashseed": os.environ.get("PYTHONHASHSEED"),
+            "cpu_model": cpu_model()}

@@ -60,6 +60,28 @@ SSM_CHUNK = 256
 # None.  Set only while stage digests are read
 # (``repro_torch.launch.oplog.Stages``).
 TAP = None
+# torch's CPU functions that compute an f32 or f64 tensor with MKL's
+# vector math, in chunks of 2048 elements, one a thread (the ones the
+# port calls)
+VECTOR_MATH = (torch.cos, torch.sin, torch.exp, torch.log, torch.sqrt,
+               torch.tanh)
+
+
+def first_calls_on_one_thread() -> None:
+    """Each of ``VECTOR_MATH``'s first call in this process, in f32 and
+    f64, on one element, on this thread.  MKL's vector math now and then
+    computes one thread's chunk of a process's first call made from
+    several threads at once with a lower-accuracy kernel (olmoe's RoPE
+    ``cos``: that chunk's values about 7e-9 off relative, where they are
+    1e-16 off after; ``tools/vml_first_call.py``).  Run when this module
+    is imported, before any model op can make such a call."""
+    for dtype in (torch.float32, torch.float64):
+        x = torch.ones(1, dtype=dtype)
+        for fn in VECTOR_MATH:
+            fn(x)
+
+
+first_calls_on_one_thread()
 
 
 def tap(name: str, x: torch.Tensor) -> torch.Tensor:

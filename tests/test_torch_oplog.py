@@ -205,7 +205,8 @@ def test_failing_hold_report_names_the_parting_op(chip_smoke, tmp_path,
     assert not list(work.glob("ops.*"))             # the hold runs plain
     whole = C.mesh_cpu_whole(work, arch)
     digest = C.mesh_cpu_digest(whole)
-    monkeypatch.setitem(C.MESH_CPU_USUAL_STAGES, torch.__version__, {
+    monkeypatch.setitem(C.MESH_CPU_USUAL_STAGES,
+                        C.usual_key(C.MESH_CPU_THREADS), {
         r[0]: r[2] for r in C.mesh_cpu_stage_rows(whole)})
     layer = next(r for r in whole["stages"][2]["rows"] if r[0] == "layer 1")
     layer[1] = "0" * 16

@@ -152,7 +152,7 @@ def test_moe_forward_stage_digests_repeat(moe):
         "final_norm", "logits"]
     got = C.moe_cpu_stages(a)
     assert list(got["stages"]) == labels and got["usual_known"] is (
-        torch.__version__ in C.MOE_CPU_USUAL_STAGES)
+        C.usual_key(C.MOE_CPU_THREADS) in C.MOE_CPU_USUAL_STAGES)
 
 
 def test_moe_forward_is_bit_equal_with_digests_on_and_off(moe):

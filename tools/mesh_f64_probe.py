@@ -412,7 +412,10 @@ def main() -> int:
 
     emit(card=smi(), torch=torch.__version__, tree=str(TREE),
          args=vars(args))
-    usual = getattr(C, "MESH_CPU_USUAL_STAGES", {}).get(torch.__version__)
+    # keyed by torch version and a rank's threads; by the version alone
+    # in a tree before that (--tree)
+    table = getattr(C, "MESH_CPU_USUAL_STAGES", {})
+    usual = table.get((torch.__version__, 2), table.get(torch.__version__))
     cfg, pipe = C.mesh_cpu_case(ARCH)
     masters = C.mesh_cpu_masters(cfg)
     names = C.leaf_names(masters)

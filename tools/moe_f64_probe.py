@@ -244,15 +244,24 @@ def cpu_once(save=None, record=None) -> dict:
     its decode and forward logits and of its picks, and each stage's
     digest.  With ``save`` (a path) the logits and the tensors of every
     stage but the masters are saved there.  With ``record`` (a path) the
-    run is recorded by ``OpLog``, whose rows are written there."""
+    run is recorded by ``OpLog``, whose rows are written there.  It runs
+    as the check does (``chip_smoke.moe_cpu_side``: on
+    ``MOE_CPU_THREADS`` threads), and gives its CPU conditions
+    (``conditions``)."""
     C = _chip_smoke()
     cfg = dataclasses.replace(get_arch(ARCH), n_layers=N_LAYERS)
     host = tree_map(lambda a: a.cpu(), C.cut_params(cfg, 1))
     c = dataclasses.replace(cfg, dtype="float64")
     stages = _Placed(keep=KEEP_NUMEL)
-    run = lambda: C.routed(lambda: C.moe_cpu_run(  # noqa: E731
-        c, M._cast(host, torch.float64), C.decode_tokens(cfg).cpu(),
-        stages))
+    conditions = {}
+
+    def run():
+        got, picks, now = C.moe_cpu_side(
+            c, M._cast(host, torch.float64), C.decode_tokens(cfg).cpu(),
+            stages)
+        conditions.update(now)
+        return got, picks
+
     t0 = time.perf_counter()
     extra = {}
     if record:
@@ -267,9 +276,9 @@ def cpu_once(save=None, record=None) -> dict:
         torch.save({"logits": [dec, full], "stages": stages.kept}, save)
     return {"decode": C.sha16([dec]), "forward": C.sha16([full]),
             "picks": C.sha16(picks), "cpu_s": time.perf_counter() - t0,
-            "threads": torch.get_num_threads(),
+            "threads": conditions["threads"],
             "stages": stages.rows, "digests_s": stages.seconds,
-            "offsets": stages.offsets,
+            "offsets": stages.offsets, "conditions": conditions,
             "cpus": len(os.sched_getaffinity(0)), "pid": os.getpid(),
             "recorded": bool(record), **extra}
 
@@ -320,7 +329,7 @@ def cpu_processes(n: int, out: str, record=False) -> None:
     of each first parted stage, and gives, for each hash, the largest
     difference of its processes from the first's and from the card's."""
     C = _chip_smoke()
-    usual = C.MOE_CPU_USUAL_STAGES.get(torch.__version__)
+    usual = C.MOE_CPU_USUAL_STAGES.get(C.usual_key(C.MOE_CPU_THREADS))
     counts, largest, parted, vs_card = {}, {}, {}, {}
     work = ROOT / "build" / "moe_cpu_processes"
     work.mkdir(parents=True, exist_ok=True)
